@@ -1,9 +1,9 @@
 """Coarse-level (p=1) solver driver — the AMG-path replacement.
 
-TPU-native counterpart of reference examples/amg/main.cpp: a pure p=1
+JAX counterpart of reference examples/amg/main.cpp: a pure p=1
 solve of the Poisson problem, there via PETSc KSPCG preconditioned by
 hypre BoomerAMG on device CSR ("ZZZ Solve", main.cpp:209-211). The
-framework replaces algebraic multigrid with TPU-friendly options
+framework replaces algebraic multigrid with matrix-free options
 (BASELINE.md explicitly swaps the AMG path out):
 
 - `--pc jacobi`  : Jacobi-CG (default; the coarse solve used inside PMG),
@@ -39,12 +39,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_gauss, fit_box_cells
-    from pmg_dolfinx_tpu.ops.lattice import LatticeLaplacian
-    from pmg_dolfinx_tpu.solvers.cg import cg_solve
-    from pmg_dolfinx_tpu.utils.timers import Timer, list_timings
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_gauss, fit_box_cells
+    from pmg_dolfinx_jax.ops.lattice import LatticeLaplacian
+    from pmg_dolfinx_jax.solvers.cg import cg_solve
+    from pmg_dolfinx_jax.utils.timers import Timer, list_timings
 
     nc = fit_box_cells(args.ndofs, 1)
     if args.pc == "hmg":
@@ -52,14 +52,14 @@ def main():
         # (fit_box_cells may pick prime cell counts).
         nc = tuple((c + 3) // 4 * 4 for c in nc)
     if args.mesh == "perturbed":
-        from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
+        from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
 
         mesh = PerturbedBoxMesh(nc)
     else:
         mesh = BoxMesh(nc)
     kappa = args.kappa
     if args.kappa_field == "linear":
-        from pmg_dolfinx_tpu.models.poisson import kappa_linear
+        from pmg_dolfinx_jax.models.poisson import kappa_linear
 
         kappa = kappa_linear
     general = args.mesh == "perturbed" or args.kappa_field != "const"
@@ -72,8 +72,8 @@ def main():
 
     precond = None
     if args.pc == "cheb":
-        from pmg_dolfinx_tpu.solvers.chebyshev import chebyshev4_solve
-        from pmg_dolfinx_tpu.solvers.tridiag import lanczos_eigenvalue_estimates
+        from pmg_dolfinx_jax.solvers.chebyshev import chebyshev4_solve
+        from pmg_dolfinx_jax.solvers.tridiag import lanczos_eigenvalue_estimates
 
         _, info = cg_solve(op, jnp.ones_like(b), jnp.zeros_like(b),
                            op.diag_inv, rtol=1e-6, maxiter=20, record=True)
@@ -87,19 +87,19 @@ def main():
                                     lmax, 3)
     flexible = False
     if args.pc == "hmg":
-        from pmg_dolfinx_tpu.solvers.pmg import v_cycle
+        from pmg_dolfinx_jax.solvers.pmg import v_cycle
 
         if general:
             # Rediscretized lattice hierarchy: curved meshes re-evaluate
             # the warp per level, DG-0 kappa volume-averages — the full
             # BoomerAMG-replacement scenario (src/amg.hpp on any mesh).
-            from pmg_dolfinx_tpu.solvers.hmg import build_hmg_general
+            from pmg_dolfinx_jax.solvers.hmg import build_hmg_general
 
             levels, data, bottom, hops = build_hmg_general(
                 mesh, 1, kappa, dtype)
         else:
-            from pmg_dolfinx_tpu.solvers.hmg import build_hmg
-            from pmg_dolfinx_tpu.solvers.pmg import kron_cycle_ops
+            from pmg_dolfinx_jax.solvers.hmg import build_hmg
+            from pmg_dolfinx_jax.solvers.pmg import kron_cycle_ops
 
             levels, data, bottom = build_hmg(mesh, 1, kappa, dtype)
             hops = kron_cycle_ops("highest")
@@ -123,7 +123,7 @@ def main():
 
     with Timer("ZZZ Solve", sync=True):
         if flexible:
-            from pmg_dolfinx_tpu.solvers.cg import fcg_solve
+            from pmg_dolfinx_jax.solvers.cg import fcg_solve
 
             x, info = fcg_solve(op, b, jnp.zeros_like(b), precond,
                                 rtol=args.rtol, maxiter=args.max_iters)

@@ -1,6 +1,6 @@
 """CG driver: Jacobi-CG solve + eigenvalue estimation + Chebyshev solve.
 
-TPU-native counterpart of reference examples/cg/main.cpp: matrix-free
+JAX counterpart of reference examples/cg/main.cpp: matrix-free
 operator at p=3, Jacobi-preconditioned CG solve ("ZZZ CG" timer), Lanczos
 eigenvalue estimation from recorded coefficients, then a 30-iteration
 fourth-kind Chebyshev solve with nonzero initial guess, and a peak-memory
@@ -23,16 +23,16 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_gauss, fit_box_cells
-    from pmg_dolfinx_tpu.ops.lattice import LatticeLaplacian
-    from pmg_dolfinx_tpu.ops.laplacian import MatFreeLaplacian
-    from pmg_dolfinx_tpu.solvers.cg import cg_solve
-    from pmg_dolfinx_tpu.solvers.chebyshev import chebyshev4_solve
-    from pmg_dolfinx_tpu.solvers.tridiag import lanczos_eigenvalue_estimates
-    from pmg_dolfinx_tpu.utils.profiling import peak_memory_fraction
-    from pmg_dolfinx_tpu.utils.timers import Timer, list_timings
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_gauss, fit_box_cells
+    from pmg_dolfinx_jax.ops.lattice import LatticeLaplacian
+    from pmg_dolfinx_jax.ops.laplacian import MatFreeLaplacian
+    from pmg_dolfinx_jax.solvers.cg import cg_solve
+    from pmg_dolfinx_jax.solvers.chebyshev import chebyshev4_solve
+    from pmg_dolfinx_jax.solvers.tridiag import lanczos_eigenvalue_estimates
+    from pmg_dolfinx_jax.utils.profiling import peak_memory_fraction
+    from pmg_dolfinx_jax.utils.timers import Timer, list_timings
 
     nc = fit_box_cells(args.ndofs, args.degree)
     mesh = BoxMesh(nc)
@@ -40,31 +40,14 @@ def main():
     print(f"mesh {nc}, p={args.degree}, ndofs={nd}, backend {jax.default_backend()}")
 
     with Timer("create matfree operator"):
-        if args.operator in ("kron_blocked", "lattice_blocked") \
-                and args.dtype != "f32":
-            raise SystemExit(
-                f"--operator {args.operator} is f32-only (Mosaic kernels)"
-            )
         if args.operator == "kron":
-            from pmg_dolfinx_tpu.ops.kron import KronLaplacian
+            from pmg_dolfinx_jax.ops.kron import KronLaplacian
 
             op = KronLaplacian(mesh, args.degree, kappa=args.kappa,
                                dtype=dtype)
-        elif args.operator == "kron_blocked":
-            from pmg_dolfinx_tpu.ops.pallas_kron_blocked import (
-                PallasKronBlocked,
-            )
-
-            op = PallasKronBlocked(mesh, args.degree, kappa=args.kappa)
         elif args.operator == "lattice":
             op = LatticeLaplacian(mesh, args.degree, kappa=args.kappa,
                                   dtype=dtype)
-        elif args.operator == "lattice_blocked":
-            from pmg_dolfinx_tpu.ops.pallas_lattice_blocked import (
-                PallasLatticeBlocked,
-            )
-
-            op = PallasLatticeBlocked(mesh, args.degree, kappa=args.kappa)
         else:
             op = MatFreeLaplacian(mesh, args.degree, kappa=args.kappa,
                                   dtype=dtype)

@@ -2,7 +2,7 @@
 
 Solves ``-div(kappa grad u) + c . grad u + sigma u = f`` on the unit
 cube with a constant velocity ``c`` (`solvers/convdiff.py`): the
-advection operator rides the Kronecker separability (three extra MXU
+advection operator rides the Kronecker separability (three extra
 matmuls per apply, `ops.kron.axis_advection`), and the nonsymmetric
 system is solved by BiCGStab preconditioned with the framework's
 V-cycle on the symmetric (diffusion + sigma) part.
@@ -60,13 +60,13 @@ def main():
     n_dev = int(np.prod(shards)) if shards is not None else None
     dtype = setup_jax(args, n_cpu_devices=n_dev if args.cpu else None)
 
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, l2_error
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.models.poisson import fit_box_cells, u_exact
-    from pmg_dolfinx_tpu.solvers.convdiff import (convdiff_solve,
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs, l2_error
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.models.poisson import fit_box_cells, u_exact
+    from pmg_dolfinx_jax.solvers.convdiff import (convdiff_solve,
                                                   sd_stabilized_kappa)
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
-    from pmg_dolfinx_tpu.utils.timers import Timer, list_timings
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.utils.timers import Timer, list_timings
 
     if args.operator != "kron":
         print("convection-diffusion rides the kron level data: "
@@ -93,7 +93,7 @@ def main():
                 + sum(c_ * g_ for c_, g_ in zip(cvel, g)))
 
     if args.transient:
-        from pmg_dolfinx_tpu.solvers.transient import (
+        from pmg_dolfinx_jax.solvers.transient import (
             convdiff_advective_dt, convdiff_fdm_evolve)
 
         kap = args.kappa
@@ -112,7 +112,7 @@ def main():
         with Timer("setup (assembly + FDM factorization)"):
             b = assemble_rhs(mesh, P, f)
             if shards is not None:
-                from pmg_dolfinx_tpu.parallel.transient_dist import (
+                from pmg_dolfinx_jax.parallel.transient_dist import (
                     convdiff_dist_evolve)
 
                 print(f"sharded IMEX loop: shards {shards}")
@@ -156,10 +156,10 @@ def main():
         if shards is None:
             return PMGHierarchy(mesh, **kw)
         if np.ndim(shards) == 0:
-            from pmg_dolfinx_tpu.parallel.dist import DistPMG
+            from pmg_dolfinx_jax.parallel.dist import DistPMG
 
             return DistPMG(mesh, n_devices=int(shards), **kw)
-        from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+        from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
         return GridPMG(mesh, shards=tuple(shards), **kw)
 

@@ -6,7 +6,7 @@ the framework's shifted (reaction-diffusion) family with
 ``sigma = 1/dt`` (solvers/transient.py).
 
 On the kron family (axis-aligned boxes, incl. --grade) every step is
-ONE exact FDM direct solve — six MXU matmuls — and the whole time loop
+ONE exact FDM direct solve — six small matmuls — and the whole time loop
 compiles to a single XLA `lax.scan` program: zero host round-trips
 between steps. General meshes (--mesh perturbed) step through the
 shifted PMG hierarchy with one warm FCG(V) solve per step.
@@ -47,9 +47,8 @@ def main():
                    help="per-step FCG tolerance (perturbed mesh only)")
     p.add_argument("--batch", type=int, default=0,
                    help="serving mode: step BATCH initial conditions "
-                        "through the lane-packed kernels (f32, small "
-                        "lattices NZ <= 64; pack once, scan packed FDM "
-                        "steps, unpack at the end)")
+                        "through one program (jax.vmap of the scanned "
+                        "FDM stepper, solvers.transient.batch_evolve)")
     p.add_argument("--shards", type=str, default="",
                    help="shard the scanned time loop: 'N' (x-slab) or "
                         "'sx,sy,sz' (device grid) — one distributed FDM "
@@ -67,9 +66,9 @@ def main():
 
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.fem.assembly import l2_error
-    from pmg_dolfinx_tpu.models.poisson import fit_box_cells
-    from pmg_dolfinx_tpu.utils.timers import Timer, list_timings
+    from pmg_dolfinx_jax.fem.assembly import l2_error
+    from pmg_dolfinx_jax.models.poisson import fit_box_cells
+    from pmg_dolfinx_jax.utils.timers import Timer, list_timings
 
     P, kappa = args.degree, args.kappa
     nc = fit_box_cells(args.ndofs, P)
@@ -78,7 +77,7 @@ def main():
         nc = tuple((c + s - 1) // s * s for c, s in zip(nc, sh3))
     spacing = None
     if args.grade:
-        from pmg_dolfinx_tpu.fem.mesh import geometric_spacing
+        from pmg_dolfinx_jax.fem.mesh import geometric_spacing
 
         axes_s, ratio_s = args.grade.split(":")
         spacing = tuple(
@@ -87,11 +86,11 @@ def main():
             for a in range(3)
         )
     if args.mesh == "perturbed":
-        from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
+        from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
 
         mesh = PerturbedBoxMesh(nc, spacing=spacing)
     else:
-        from pmg_dolfinx_tpu.fem.mesh import BoxMesh
+        from pmg_dolfinx_jax.fem.mesh import BoxMesh
 
         mesh = BoxMesh(nc, spacing=spacing)
     print(f"mesh {nc[0]}x{nc[1]}x{nc[2]} p={P} ({mesh.num_dofs(P)} dofs), "
@@ -112,15 +111,17 @@ def main():
                          "(axis-aligned box, unbatched)")
     if args.batch:
         if args.mesh == "perturbed":
-            raise SystemExit("--batch rides the lane-packed kron/FDM "
-                             "kernels (axis-aligned box only)")
-        from pmg_dolfinx_tpu.solvers.transient import heat_packed_evolve
+            raise SystemExit("--batch rides the scanned FDM stepper "
+                             "(axis-aligned box only)")
+        from pmg_dolfinx_jax.solvers.transient import (batch_evolve,
+                                                       heat_fdm_evolve)
 
         B = args.batch
         with Timer("setup"):
-            evolve = heat_packed_evolve(mesh, P, kappa=kappa, dt=args.dt,
-                                        B=B, scheme=args.scheme)
-        U0 = np.broadcast_to(u0, (B, u0.size)).astype(np.float32)
+            evolve = batch_evolve(heat_fdm_evolve(
+                mesh, P, kappa=kappa, dt=args.dt, scheme=args.scheme,
+                dtype=dtype))
+        U0 = np.broadcast_to(u0, (B, u0.size)).astype(dtype)
         # Warm with the FULL step count: nsteps is a trace-time
         # constant of the scanned program — a 1-step warmup leaves the
         # n-step compile inside the timed region.
@@ -142,20 +143,20 @@ def main():
 
     with Timer("setup"):
         if args.mesh == "perturbed":
-            from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
-            from pmg_dolfinx_tpu.solvers.transient import heat_pcg_evolve
+            from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
+            from pmg_dolfinx_jax.solvers.transient import heat_pcg_evolve
 
             kap_op = kappa / 2 if args.scheme == "cn" else kappa
             # --fixed-iters (the scanned stepper) uses the smoother
             # coarse: the cg coarse's 60-iteration while_loop nested
-            # inside the scanned FCG body blows the TPU compile up at
+            # inside the scanned FCG body blows the compile up at
             # large N (heat_pcg_evolve_scanned docstring).
             coarse = "smoother" if args.fixed_iters else "cg"
             hier = PMGHierarchy(mesh, degrees=(1, P), kappa=kap_op,
                                 sigma=1.0 / args.dt, dtype=dtype,
                                 coarse=coarse, operator="lattice")
             if args.fixed_iters:
-                from pmg_dolfinx_tpu.solvers.transient import (
+                from pmg_dolfinx_jax.solvers.transient import (
                     heat_pcg_evolve_scanned)
 
                 evolve = heat_pcg_evolve_scanned(
@@ -166,7 +167,7 @@ def main():
                                          scheme=args.scheme,
                                          rtol=args.rtol)
         elif shards is not None:
-            from pmg_dolfinx_tpu.parallel.transient_dist import (
+            from pmg_dolfinx_jax.parallel.transient_dist import (
                 heat_dist_evolve)
 
             print(f"sharded time loop: shards {shards} "
@@ -175,7 +176,7 @@ def main():
                                       dt=args.dt, scheme=args.scheme,
                                       dtype=dtype)
         else:
-            from pmg_dolfinx_tpu.solvers.transient import heat_fdm_evolve
+            from pmg_dolfinx_jax.solvers.transient import heat_fdm_evolve
 
             evolve = heat_fdm_evolve(mesh, P, kappa=kappa, dt=args.dt,
                                      scheme=args.scheme, dtype=dtype)
@@ -205,8 +206,8 @@ def main():
                 np.asarray(evolve(u0, tail))
 
     if args.save_series and args.mesh != "perturbed":
-        from pmg_dolfinx_tpu.solvers.transient import snapshot_evolve
-        from pmg_dolfinx_tpu.utils.io import write_npz, write_vtk
+        from pmg_dolfinx_jax.solvers.transient import snapshot_evolve
+        from pmg_dolfinx_jax.utils.io import write_npz, write_vtk
 
         with Timer(f"evolve+snapshots ({args.steps} steps)"):
             t0 = time.time()

@@ -1,6 +1,6 @@
 """Operator micro-benchmark: repeated matvecs + correctness oracle.
 
-TPU-native counterpart of reference examples/mat_free/main.cpp
+JAX counterpart of reference examples/mat_free/main.cpp
 (`./mat_free --ndofs N [--mat_comp] [--batch_size B]`): times `--reps`
 repeated matrix-free applies (the "% Mat-free Matvec" / GDOF/s number,
 main.cpp:260-265) and with `--mat_comp` checks the fast operator against
@@ -19,16 +19,6 @@ def main():
     p = base_parser(__doc__)
     p.add_argument("--degree", type=int, default=4)
     p.add_argument("--reps", type=int, default=1000)
-    p.add_argument("--variant", choices=["yexp", "v1", "geom", "zgrp", ""],
-                   default="",
-                   help="lattice_blocked kernel variant (default: "
-                        "auto-select by precision)")
-    p.add_argument("--bcells", type=int, default=1,
-                   help="lattice_blocked cell-slab block size (the "
-                        "x-cells each Mosaic grid step owns)")
-    p.add_argument("--zb", type=int, default=0,
-                   help="z-group size for --variant zgrp (default: "
-                        "cost-model auto-select)")
     p.add_argument("--mat_comp", action="store_true",
                    help="verify against the assembled CSR oracle (hosts a "
                         "dense-per-cell assembly; use moderate --ndofs)")
@@ -41,10 +31,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.models.poisson import fit_box_cells
-    from pmg_dolfinx_tpu.ops.lattice import LatticeLaplacian, lattice_laplacian_apply
-    from pmg_dolfinx_tpu.ops.laplacian import MatFreeLaplacian, laplacian_apply
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.models.poisson import fit_box_cells
+    from pmg_dolfinx_jax.ops.lattice import LatticeLaplacian, lattice_laplacian_apply
+    from pmg_dolfinx_jax.ops.laplacian import MatFreeLaplacian, laplacian_apply
 
     nc = fit_box_cells(args.ndofs, args.degree)
     mesh = BoxMesh(nc)
@@ -54,11 +44,11 @@ def main():
 
     x = jnp.ones(nd, dtype=dtype)
     if args.operator == "kron":
-        from pmg_dolfinx_tpu.ops.kron import KronLaplacian, kron_laplacian_apply
+        from pmg_dolfinx_jax.ops.kron import KronLaplacian, kron_laplacian_apply
 
         op = KronLaplacian(mesh, args.degree, kappa=args.kappa, dtype=dtype,
                            precision=args.precision)
-        # Lattice-shaped carrier: the TPU-native layout (see ops/kron.py).
+        # Lattice-shaped carrier (see ops/kron.py).
         x3 = x.reshape(mesh.lattice_shape(args.degree))
         bc3 = op.bc_marker.reshape(x3.shape)
 
@@ -72,41 +62,6 @@ def main():
 
         def run(reps):
             return float(chain(x3, op.Ks, op.ms, bc3, reps))
-    elif args.operator == "kron_blocked":
-        from pmg_dolfinx_tpu.ops.pallas_kron_blocked import PallasKronBlocked
-
-        op = PallasKronBlocked(mesh, args.degree, kappa=args.kappa,
-                               precision=args.precision)
-        x3 = x.reshape(mesh.lattice_shape(args.degree))
-
-        @partial(jax.jit, static_argnums=(1,))
-        def chain(x, reps):
-            def body(i, v):
-                return op._apply_impl(x + 1e-30 * v)
-            return jnp.sum(jax.lax.fori_loop(0, reps, body, x))
-
-        def run(reps):
-            return float(chain(x3, reps))
-    elif args.operator == "lattice_blocked":
-        from pmg_dolfinx_tpu.ops.pallas_lattice_blocked import (
-            PallasLatticeBlocked,
-        )
-
-        op = PallasLatticeBlocked(mesh, args.degree, kappa=args.kappa,
-                                  precision=args.precision,
-                                  variant=args.variant or None,
-                                  bcells=args.bcells,
-                                  zb=args.zb or None)
-
-        @partial(jax.jit, static_argnums=(4,))
-        def chain(x, mats, Gt, bc, reps):
-            def body(i, v):
-                return op._apply_impl(x + 1e-30 * v, mats, Gt, bc)
-            return jnp.sum(jax.lax.fori_loop(0, reps, body, x))
-
-        def run(reps):
-            g = {"geom": op.co, "zgrp": op.Gz}.get(op.variant, op.Gt)
-            return float(chain(x, op.mats, g, op.bc_marker, reps))
     elif args.operator == "lattice":
         op = LatticeLaplacian(mesh, args.degree, kappa=args.kappa, dtype=dtype,
                               precision=args.precision)
@@ -134,17 +89,17 @@ def main():
             return float(chain(x, op.dofmap, op.G, op.coeff, op.D,
                                op.bc_marker, reps))
 
-    # Slope timing (subtracts launch/readback overhead; see bench.py).
-    lo, hi = max(args.reps // 10, 1), args.reps
-    run(lo); run(hi)
-    t = time.time(); run(lo); t_lo = time.time() - t
-    t = time.time(); run(hi); t_hi = time.time() - t
-    per = (t_hi - t_lo) / (hi - lo)
+    # One jitted chain of --reps applies ending in a scalar readback
+    # (the readback synchronizes); the first call compiles.
+    run(args.reps)
+    t = time.perf_counter()
+    run(args.reps)
+    per = (time.perf_counter() - t) / args.reps
     print(f"mat-free matvec: {per * 1e3:.3f} ms/apply -> "
-          f"{nd / per / 1e9:.3f} GDOF/s ({hi} reps)")
+          f"{nd / per / 1e9:.3f} GDOF/s ({args.reps} reps)")
 
     if args.mat_comp:
-        from pmg_dolfinx_tpu.fem.assembly import assemble_stiffness
+        from pmg_dolfinx_jax.fem.assembly import assemble_stiffness
 
         A = assemble_stiffness(mesh, args.degree, kappa=args.kappa)
         xr = np.random.default_rng(0).standard_normal(nd)

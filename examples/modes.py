@@ -54,18 +54,14 @@ def main():
                    default="const")
     args = p.parse_args()
     args.dtype = "f64"  # modal analysis runs in f64
-    # ALWAYS CPU: an f64 LOBPCG at 2M dofs crashed the remote TPU worker
-    # ("kernel fault" class — CLAUDE.md). Modal analysis is a setup-time
-    # computation; the CPU path is the validated one.
-    args.cpu = True
     setup_jax(args)
 
     import jax
 
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-    from pmg_dolfinx_tpu.models.poisson import fit_box_cells, kappa_linear
-    from pmg_dolfinx_tpu.solvers.eig import lowest_eigenpairs
-    from pmg_dolfinx_tpu.utils.timers import Timer, list_timings
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+    from pmg_dolfinx_jax.models.poisson import fit_box_cells, kappa_linear
+    from pmg_dolfinx_jax.solvers.eig import lowest_eigenpairs
+    from pmg_dolfinx_jax.utils.timers import Timer, list_timings
 
     nc = fit_box_cells(args.ndofs, args.degree)
     faces = tuple(

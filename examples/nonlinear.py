@@ -54,39 +54,39 @@ def main():
     p.add_argument("--scheme", choices=["be", "cnab"], default="cnab")
     p.add_argument("--batch", type=int, default=0,
                    help="with --transient: step B trajectories through "
-                        "the lane-packed serving kernels (f32, NZ <= "
-                        "64; B=1 rides the single-RHS kernels)")
+                        "one program (jax.vmap of the scanned IMEX "
+                        "stepper, solvers.transient.batch_evolve)")
     args = p.parse_args()
     dtype = setup_jax(args)
 
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, l2_error
-    from pmg_dolfinx_tpu.models import semilinear
-    from pmg_dolfinx_tpu.models.poisson import fit_box_cells, u_exact
-    from pmg_dolfinx_tpu.solvers.newton import newton_solve
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
-    from pmg_dolfinx_tpu.utils.timers import Timer, list_timings
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs, l2_error
+    from pmg_dolfinx_jax.models import semilinear
+    from pmg_dolfinx_jax.models.poisson import fit_box_cells, u_exact
+    from pmg_dolfinx_jax.solvers.newton import newton_solve
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.utils.timers import Timer, list_timings
 
     nc = fit_box_cells(args.ndofs, max(args.degrees))
     kappa = args.kappa
     if args.kappa_field == "linear":
-        from pmg_dolfinx_tpu.models.poisson import kappa_linear
+        from pmg_dolfinx_jax.models.poisson import kappa_linear
 
         kappa = kappa_linear
-        if args.operator in ("kron", "kron_blocked"):
+        if args.operator == "kron":
             args.operator = "lattice"
             print("variable kappa: switching operator backend to 'lattice'")
     if args.mesh == "perturbed":
-        from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
+        from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
 
         mesh = PerturbedBoxMesh(nc)
-        if args.operator in ("kron", "kron_blocked"):
+        if args.operator == "kron":
             args.operator = "lattice"
             print("perturbed mesh: switching operator backend to 'lattice'")
         if args.coarse == "fdm":
             args.coarse = "hmg"
             print("perturbed mesh: switching coarse solver to 'hmg'")
     else:
-        from pmg_dolfinx_tpu.fem.mesh import BoxMesh
+        from pmg_dolfinx_jax.fem.mesh import BoxMesh
 
         mesh = BoxMesh(nc)
     P = max(args.degrees)
@@ -101,7 +101,7 @@ def main():
         else:
             # No manufactured source for the variable/curved cases: use
             # the linear family's source (solution unknown, report |F|).
-            from pmg_dolfinx_tpu.models.poisson import f_rhs
+            from pmg_dolfinx_jax.models.poisson import f_rhs
 
             f = f_rhs(2.0, sigma=args.sigma)
         b = assemble_rhs(mesh, P, f)
@@ -118,11 +118,11 @@ def main():
             raise SystemExit("--transient: box + cubic + constant kappa "
                              "(the manufactured steady state)")
         if args.implicit and args.batch:
-            raise SystemExit("--batch rides the IMEX packed scan; "
+            raise SystemExit("--batch rides the IMEX scan; "
                              "--implicit is the per-step Newton host "
                              "loop — pick one")
         if args.implicit:
-            from pmg_dolfinx_tpu.solvers.transient import (
+            from pmg_dolfinx_jax.solvers.transient import (
                 semilinear_newton_evolve)
 
             with Timer("setup (shifted hierarchy)"):
@@ -139,24 +139,25 @@ def main():
             print(f"implicit BE: Newton/step min {min(iters)} "
                   f"max {max(iters)}")
         elif args.batch:
-            from pmg_dolfinx_tpu.solvers.transient import (
-                semilinear_packed_evolve)
+            from pmg_dolfinx_jax.solvers.transient import (
+                batch_evolve, semilinear_fdm_evolve)
 
             B = args.batch
-            with Timer("setup (packed serving kernels)"):
-                evolve = semilinear_packed_evolve(
-                    mesh, P, nonlin, kappa=args.kappa, dt=args.dt, B=B,
-                    scheme=args.scheme, sigma=args.sigma, f=b)
-            U0 = np.zeros((B, mesh.num_dofs(P)), np.float32)
+            with Timer("setup (batched IMEX stepper)"):
+                evolve = batch_evolve(semilinear_fdm_evolve(
+                    mesh, P, nonlin, kappa=args.kappa, dt=args.dt,
+                    scheme=args.scheme, sigma=args.sigma, dtype=dtype,
+                    f=b))
+            U0 = np.zeros((B, mesh.num_dofs(P)), dtype)
             with Timer(f"warmup (compile + {args.steps} steps)"):
                 np.asarray(evolve(U0, args.steps))
             t0 = time.time()
             uT = np.asarray(evolve(U0, args.steps))[0].reshape(-1)
             wall = time.time() - t0
-            print(f"lane-packed serving batch {B} "
+            print(f"batched serving, batch {B} "
                   f"({args.steps * B / wall:.1f} column-steps/s)")
         else:
-            from pmg_dolfinx_tpu.solvers.transient import (
+            from pmg_dolfinx_jax.solvers.transient import (
                 semilinear_fdm_evolve)
 
             with Timer("setup (FDM factorization)"):

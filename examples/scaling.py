@@ -47,10 +47,10 @@ def main():
 
     import jax
 
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_rhs, fit_box_cells
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_rhs, fit_box_cells
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     if args.grid:
         return _grid_sweep(args, dtype)
@@ -121,16 +121,14 @@ def _grid_sweep(args, dtype):
 
     import jax
 
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_rhs, fit_box_cells
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_rhs, fit_box_cells
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
-    if args.operator not in ("kron", "kron_blocked", "lattice",
-                             "lattice_blocked"):
+    if args.operator not in ("kron", "lattice"):
         raise SystemExit(
-            f"--grid supports operators kron/kron_blocked/lattice/"
-            f"lattice_blocked, got {args.operator!r}"
+            f"--grid supports operators kron/lattice, got {args.operator!r}"
         )
     n_avail = args.max_devices or len(jax.devices())
     layouts = [(1, 1, 1), (2, 1, 1), (2, 2, 1), (2, 2, 2),

@@ -47,13 +47,13 @@ def main():
     args = p.parse_args()
     dtype = setup_jax(args)
 
-    from pmg_dolfinx_tpu.fem.assembly import (assemble_rhs,
+    from pmg_dolfinx_jax.fem.assembly import (assemble_rhs,
                                               l2_error_collocated)
-    from pmg_dolfinx_tpu.fem.unstructured import (l_shaped_hex_mesh,
+    from pmg_dolfinx_jax.fem.unstructured import (l_shaped_hex_mesh,
                                                   load_hex_mesh_npz,
                                                   read_gmsh_hex)
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
-    from pmg_dolfinx_tpu.utils.timers import Timer, list_timings
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.utils.timers import Timer, list_timings
 
     if args.operator not in ("dofmap", "csr", "dss"):
         print(f"unstructured topology: --operator {args.operator} needs "

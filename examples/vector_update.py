@@ -1,6 +1,6 @@
 """Halo-exchange / compute overlap micro-benchmark on a device mesh.
 
-TPU-native counterpart of reference examples/vector-update/main.cpp: 100
+JAX counterpart of reference examples/vector-update/main.cpp: 100
 interleaved rounds of halo exchange + norm + axpy (main.cpp:107-116),
 checking determinism of the printed dot value and timing the overlap.
 Here the halo exchange is the interface-plane ppermute pair inside
@@ -31,9 +31,9 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.models.poisson import fit_box_cells
-    from pmg_dolfinx_tpu.parallel.dist import AXIS, DistPMG
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.models.poisson import fit_box_cells
+    from pmg_dolfinx_jax.parallel.dist import AXIS, DistPMG
 
     n_dev = args.devices or len(jax.devices())
     nc = fit_box_cells(args.ndofs, args.degree)

@@ -59,9 +59,9 @@ def main():
                         "'sx,sy,sz' (device grid) — one distributed FDM "
                         "solve per step, gather-free (box mesh)")
     p.add_argument("--batch", type=int, default=0,
-                   help="evolve B independent trajectories through the "
-                        "lane-packed serving kernels (f32, NZ <= 64; "
-                        "B=1 rides the single-RHS x-slab kernels)")
+                   help="evolve B independent trajectories through one "
+                        "program (jax.vmap of the scanned stepper, "
+                        "solvers.transient.batch_evolve)")
     args = p.parse_args()
     shards = parse_shards(args.shards) if args.shards else None
     n_dev = int(np.prod(shards)) if shards is not None else None
@@ -72,13 +72,13 @@ def main():
 
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.fem.assembly import l2_error, lumped_mass_np
-    from pmg_dolfinx_tpu.models.poisson import fit_box_cells
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian
-    from pmg_dolfinx_tpu.solvers.transient import (
+    from pmg_dolfinx_jax.fem.assembly import l2_error, lumped_mass_np
+    from pmg_dolfinx_jax.models.poisson import fit_box_cells
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
+    from pmg_dolfinx_jax.solvers.transient import (
         wave_leapfrog_evolve, wave_newmark_evolve, wave_pcg_evolve,
         wave_stable_dt)
-    from pmg_dolfinx_tpu.utils.timers import Timer, list_timings
+    from pmg_dolfinx_jax.utils.timers import Timer, list_timings
 
     P, kappa = args.degree, args.kappa
     nc = fit_box_cells(args.ndofs, P)
@@ -87,7 +87,7 @@ def main():
         nc = tuple((c + s - 1) // s * s for c, s in zip(nc, sh3))
     spacing = None
     if args.grade:
-        from pmg_dolfinx_tpu.fem.mesh import geometric_spacing
+        from pmg_dolfinx_jax.fem.mesh import geometric_spacing
 
         axes_s, ratio_s = args.grade.split(":")
         spacing = tuple(
@@ -96,11 +96,11 @@ def main():
             for a in range(3)
         )
     if args.mesh == "perturbed":
-        from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
+        from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
 
         mesh = PerturbedBoxMesh(nc, spacing=spacing)
     else:
-        from pmg_dolfinx_tpu.fem.mesh import BoxMesh
+        from pmg_dolfinx_jax.fem.mesh import BoxMesh
 
         mesh = BoxMesh(nc, spacing=spacing)
 
@@ -125,7 +125,7 @@ def main():
     if args.pulse > 0.0:
         if args.mesh == "perturbed":
             raise SystemExit("--pulse rides the box-mesh evolvers")
-        from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
+        from pmg_dolfinx_jax.fem.assembly import assemble_rhs
 
         # NOTE: bind the pulse parameters as defaults — the closure
         # must not read main()'s f0/t0 names at call time (t0 is
@@ -149,17 +149,22 @@ def main():
 
     if args.batch:
         if args.mesh == "perturbed" or shards is not None:
-            raise SystemExit("--batch rides the lane-packed kron/FDM "
-                             "kernels (axis-aligned box, unsharded)")
-        from pmg_dolfinx_tpu.solvers.transient import wave_packed_evolve
+            raise SystemExit("--batch rides the scanned kron/FDM "
+                             "steppers (axis-aligned box, unsharded)")
+        from pmg_dolfinx_jax.solvers.transient import batch_evolve
 
         B = args.batch
         with Timer("setup"):
-            evolve = wave_packed_evolve(mesh, P, kappa=kappa, dt=dt, B=B,
-                                        scheme=args.scheme,
-                                        gamma=args.gamma, f=f_src,
-                                        f_time=f_time)
-        U0 = np.broadcast_to(u0, (B, u0.size)).astype(np.float32)
+            if args.scheme == "newmark":
+                one = wave_newmark_evolve(mesh, P, kappa=kappa, dt=dt,
+                                          gamma=args.gamma, dtype=dtype,
+                                          f=f_src, f_time=f_time)
+            else:
+                one = wave_leapfrog_evolve(mesh, P, kappa=kappa, dt=dt,
+                                           dtype=dtype, f=f_src,
+                                           f_time=f_time)
+            evolve = batch_evolve(one)
+        U0 = np.broadcast_to(u0, (B, u0.size)).astype(dtype)
         V0 = np.zeros_like(U0)
         with Timer(f"warmup (compile + {args.steps} steps)"):
             np.asarray(evolve(U0, V0, args.steps)[0])
@@ -191,7 +196,7 @@ def main():
 
     with Timer("setup"):
         if args.mesh == "perturbed":
-            from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+            from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
             if args.scheme == "leapfrog":
                 raise SystemExit("leapfrog is kron-family only "
@@ -204,7 +209,7 @@ def main():
                                      rtol=args.rtol)
         elif args.scheme == "newmark":
             if shards is not None:
-                from pmg_dolfinx_tpu.parallel.transient_dist import (
+                from pmg_dolfinx_jax.parallel.transient_dist import (
                     wave_newmark_dist_evolve)
 
                 print(f"sharded time loop: shards {shards} "
@@ -217,7 +222,7 @@ def main():
                                              gamma=args.gamma, dtype=dtype,
                                              f=f_src, f_time=f_time)
         elif shards is not None:
-            from pmg_dolfinx_tpu.parallel.transient_dist import (
+            from pmg_dolfinx_jax.parallel.transient_dist import (
                 wave_leapfrog_dist_evolve)
 
             print(f"sharded time loop: shards {shards} "

@@ -1,7 +1,7 @@
 """Test configuration: CPU backend, 8 virtual devices, float64.
 
 Multi-chip tests run on a simulated 8-device CPU mesh
-(``xla_force_host_platform_device_count``) — the TPU-native analogue of
+(``jax_num_cpu_devices``) — the analogue of
 "test multi-node without a cluster", which the reference lacks entirely
 (SURVEY.md §4). Numerics tests run in float64 to match the reference's
 ``T = double`` (examples/pmg/main.cpp:30).
@@ -21,5 +21,6 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
 jax.config.update("jax_enable_x64", True)
 # Persistent compilation cache: XLA-CPU compiles dominate test wall time.
-jax.config.update("jax_compilation_cache_dir", "/tmp/pmg_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+from pmg_dolfinx_jax.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache(min_compile_secs=0.3)

@@ -18,7 +18,7 @@ import sys
 
 sys.path.insert(0, sys.path[0] + "/..")
 
-from pmg_dolfinx_tpu.parallel.multihost import initialize  # noqa: E402
+from pmg_dolfinx_jax.parallel.multihost import initialize  # noqa: E402
 
 coordinator, nprocs, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 out_path = sys.argv[4]
@@ -28,14 +28,15 @@ initialize(coordinator_address=coordinator, num_processes=nprocs,
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/pmg_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+from pmg_dolfinx_jax.utils.cache import enable_compile_cache  # noqa: E402
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs  # noqa: E402
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh  # noqa: E402
-from pmg_dolfinx_tpu.models.poisson import f_rhs  # noqa: E402
-from pmg_dolfinx_tpu.parallel.dist import DistPMG  # noqa: E402
-from pmg_dolfinx_tpu.parallel.grid2d import GridPMG  # noqa: E402
+enable_compile_cache(min_compile_secs=0.3)
+
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs  # noqa: E402
+from pmg_dolfinx_jax.fem.mesh import BoxMesh  # noqa: E402
+from pmg_dolfinx_jax.models.poisson import f_rhs  # noqa: E402
+from pmg_dolfinx_jax.parallel.dist import DistPMG  # noqa: E402
+from pmg_dolfinx_jax.parallel.grid2d import GridPMG  # noqa: E402
 
 assert jax.device_count() == 8, jax.devices()
 assert jax.process_count() == nprocs
@@ -55,7 +56,7 @@ grid = GridPMG(mesh_g, shards=(2, 2, 2), degrees=(1, 3), kappa=kappa,
 u_g, rn_grid = grid.solve(b_g, num_cycles=5)
 
 # General-hex lattice backend on the same 3D process-spanning grid.
-from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh  # noqa: E402
+from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh  # noqa: E402
 
 mesh_l = PerturbedBoxMesh((4, 4, 4))
 b_l = assemble_rhs(mesh_l, 3, f_rhs(kappa))
@@ -63,13 +64,13 @@ grid_l = GridPMG(mesh_l, shards=(2, 2, 2), degrees=(1, 3), kappa=kappa,
                  coarse="cg", operator="lattice")
 u_l, rn_lat = grid_l.solve(b_l, num_cycles=5)
 
-# Production blocked Mosaic pair on the process-spanning grid (f32;
-# edge-partial exchanges cross the process boundary).
+# f32 working precision on the process-spanning grid (the production
+# dtype; interface exchanges cross the process boundary).
 import jax.numpy as jnp  # noqa: E402
 
-grid_kb = GridPMG(mesh_g, shards=(2, 2, 2), degrees=(1, 3), kappa=kappa,
-                  coarse="cg", operator="kron_blocked", dtype=jnp.float32)
-_, rn_kb = grid_kb.solve(b_g, num_cycles=5)
+grid_f32 = GridPMG(mesh_g, shards=(2, 2, 2), degrees=(1, 3), kappa=kappa,
+                   coarse="cg", operator="kron", dtype=jnp.float32)
+_, rn_f32 = grid_f32.solve(b_g, num_cycles=5)
 
 # Distributed (non-gathered) h-MG coarse spanning both processes: every
 # h-level stays in the multi-axis layout; the only cross-process
@@ -86,7 +87,7 @@ _, rn_hmg = grid_h.solve(b_h, num_cycles=5)
 # multi-process SPMD.
 import numpy as np  # noqa: E402
 
-from pmg_dolfinx_tpu.models.poisson import f_rhs_tensor  # noqa: E402
+from pmg_dolfinx_jax.models.poisson import f_rhs_tensor  # noqa: E402
 
 kdiag = (1.0, 2.0, 8.0)
 b_t = assemble_rhs(mesh, 3, f_rhs_tensor(np.diag(kdiag)))
@@ -131,7 +132,7 @@ with open(out_path, "w") as f:
         "rn_dist": rn_dist,
         "rn_grid": rn_grid,
         "rn_lat": rn_lat,
-        "rn_kb": rn_kb,
+        "rn_f32": rn_f32,
         "rn_hmg": rn_hmg,
         "rn_aniso": rn_aniso,
         "rn_line": rn_line,

@@ -17,16 +17,16 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, assemble_stiffness
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.fem.unstructured import l_shaped_hex_mesh
-from pmg_dolfinx_tpu.models.poisson import f_rhs
-from pmg_dolfinx_tpu.solvers.amg import (
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs, assemble_stiffness
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.fem.unstructured import l_shaped_hex_mesh
+from pmg_dolfinx_jax.models.poisson import f_rhs
+from pmg_dolfinx_jax.solvers.amg import (
     aggregate,
     build_amg,
     _tentative,
 )
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 
 def test_aggregate_invariants():
@@ -58,7 +58,7 @@ def test_matrix_free_smoothed_P_matches_scipy():
     Psm = T0 - omega * (sp.diags(1.0 / A.diagonal()) @ (A @ T0))
     rng = np.random.default_rng(0)
     # prolong: v = P e (via the hierarchy-free building blocks)
-    from pmg_dolfinx_tpu.ops.csr import MatrixOperator
+    from pmg_dolfinx_jax.ops.csr import MatrixOperator
 
     op = MatrixOperator(mesh, P0, kappa=2.0)
     e = rng.standard_normal(na)

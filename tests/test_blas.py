@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
-from pmg_dolfinx_tpu.ops import blas
+from pmg_dolfinx_jax.ops import blas
 
 
 def test_single_device_blas():

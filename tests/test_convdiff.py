@@ -14,15 +14,15 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import (
+from pmg_dolfinx_jax.fem.assembly import (
     assemble_rhs, assemble_stiffness, l2_error, lumped_mass_np)
-from pmg_dolfinx_tpu.fem.gll import (
+from pmg_dolfinx_jax.fem.gll import (
     gauss_legendre, gauss_lobatto, lagrange_tabulate)
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.models.poisson import u_exact
-from pmg_dolfinx_tpu.ops.kron import axis_advection, axis_stiffness_mass
-from pmg_dolfinx_tpu.solvers.convdiff import convdiff_solve
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.models.poisson import u_exact
+from pmg_dolfinx_jax.ops.kron import axis_advection, axis_stiffness_mass
+from pmg_dolfinx_jax.solvers.convdiff import convdiff_solve
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 KAPPA = 2.0
 CVEL = (3.0, -1.5, 0.8)
@@ -70,7 +70,7 @@ def test_axis_advection_oracles():
     """Framework C vs the independent Gauss-Legendre assembly, and the
     exact integration-by-parts skew identity (uniform AND graded — C is
     scale-free)."""
-    from pmg_dolfinx_tpu.fem.mesh import geometric_spacing
+    from pmg_dolfinx_jax.fem.mesh import geometric_spacing
 
     for nc, P in ((4, 3), (3, 6)):
         C = axis_advection(nc, P)
@@ -89,8 +89,8 @@ def test_convdiff_apply_vs_assembled():
     operator (graded mesh included)."""
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.fem.mesh import geometric_spacing
-    from pmg_dolfinx_tpu.ops.kron import kron_convdiff_apply
+    from pmg_dolfinx_jax.fem.mesh import geometric_spacing
+    from pmg_dolfinx_jax.ops.kron import kron_convdiff_apply
 
     P, sigma = 3, 0.6
     for spacing in (None, (None, geometric_spacing(4, 3.0), None)):
@@ -163,11 +163,11 @@ def test_convdiff_sharded_matches_oracle(layout):
     kw = dict(degrees=(1, 3), kappa=KAPPA, coarse="fdm", operator="kron",
               sigma=sigma)
     if layout == "slab":
-        from pmg_dolfinx_tpu.parallel.dist import DistPMG
+        from pmg_dolfinx_jax.parallel.dist import DistPMG
 
         hier = DistPMG(mesh, n_devices=4, **kw)
     else:
-        from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+        from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
         hier = GridPMG(mesh, shards=(2, 2), **kw)
     u, info = convdiff_solve(hier, b, CVEL, rtol=1e-11)
@@ -181,7 +181,7 @@ def test_convdiff_sharded_matches_oracle(layout):
 def test_sd_tau_limits():
     """sd_stabilized_kappa consistency: zero velocity leaves kappa
     untouched, small Pe adds O(Pe) nothing, tau= overrides."""
-    from pmg_dolfinx_tpu.solvers.convdiff import sd_stabilized_kappa
+    from pmg_dolfinx_jax.solvers.convdiff import sd_stabilized_kappa
 
     mesh = BoxMesh((6, 6, 6))
     keff, taus = sd_stabilized_kappa(mesh, 3, (0.0, 0.0, 0.0), 2.0)
@@ -199,7 +199,7 @@ def test_sd_stabilized_high_peclet():
     effective diffusion keeps BiCGStab+V(fdm) converging fast, and the
     computed solution is exactly the stabilized system's (spsolve of
     the assembled diagonal-tensor operator)."""
-    from pmg_dolfinx_tpu.solvers.convdiff import sd_stabilized_kappa
+    from pmg_dolfinx_jax.solvers.convdiff import sd_stabilized_kappa
 
     mesh = BoxMesh((6, 6, 6))
     P, kappa, cvel = 3, 0.004, (1.0, 0.4, 0.2)
@@ -232,7 +232,7 @@ def test_sd_moderate_pe_keeps_accuracy():
     manufactured-solution error within ~15x of the (spectrally
     accurate) unstabilized Galerkin solve — the measured O(h)
     consistency cost documented in sd_stabilized_kappa."""
-    from pmg_dolfinx_tpu.solvers.convdiff import sd_stabilized_kappa
+    from pmg_dolfinx_jax.solvers.convdiff import sd_stabilized_kappa
 
     mesh = BoxMesh((4, 4, 4))
     P, kappa, cvel = 3, 0.3, (1.0, 0.5, -0.3)

@@ -15,11 +15,11 @@ import scipy.linalg as sla
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import (
+from pmg_dolfinx_jax.fem.assembly import (
     assemble_rhs, assemble_stiffness, lumped_mass_np)
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, geometric_spacing
-from pmg_dolfinx_tpu.ops.kron import axis_advection, axis_stiffness_mass
-from pmg_dolfinx_tpu.solvers.transient import (
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, geometric_spacing
+from pmg_dolfinx_jax.ops.kron import axis_advection, axis_stiffness_mass
+from pmg_dolfinx_jax.solvers.transient import (
     convdiff_advective_dt, convdiff_fdm_evolve)
 
 KAPPA = 1.0
@@ -126,8 +126,8 @@ def test_be_steady_state_matches_convdiff_solve():
     """The IMEX fixed point is the exact steady system ``(K + C) u = f``
     — long BE evolution lands on the convdiff_solve/spsolve answer to
     solver accuracy (the scheme error cancels at the fixed point)."""
-    from pmg_dolfinx_tpu.solvers.convdiff import convdiff_solve
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.solvers.convdiff import convdiff_solve
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = BoxMesh((4, 4, 4))
     P, dt, nsteps = 3, 0.02, 400
@@ -177,8 +177,8 @@ def test_sigma_be_steady_state_is_shifted_system():
     """With reaction sigma, the BE fixed point is the steady
     ``(K + sigma M + C) u = f`` system — the sigma-shifted hierarchy's
     convdiff_solve answer."""
-    from pmg_dolfinx_tpu.solvers.convdiff import convdiff_solve
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.solvers.convdiff import convdiff_solve
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = BoxMesh((4, 4, 4))
     P, dt, nsteps, sigma = 3, 0.02, 400, 3.0

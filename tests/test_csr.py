@@ -9,10 +9,10 @@ parity with the matrix-free operator.
 import jax.numpy as jnp
 import numpy as np
 
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.ops.csr import InterpolationMatrixOperator, MatrixOperator
-from pmg_dolfinx_tpu.ops.interpolate import PInterpolator
-from pmg_dolfinx_tpu.ops.laplacian import MatFreeLaplacian
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.ops.csr import InterpolationMatrixOperator, MatrixOperator
+from pmg_dolfinx_jax.ops.interpolate import PInterpolator
+from pmg_dolfinx_jax.ops.laplacian import MatFreeLaplacian
 
 
 def test_matrix_operator_matches_matfree():
@@ -70,9 +70,9 @@ def test_csr_pmg_backend_matches_dofmap_curved():
     examples/pmg/main.cpp:40-43) — trajectory-identical to the dofmap
     matrix-free backend on a curved mesh with per-cell kappa and a sigma
     shift (same bc semantics, same Jacobi diagonal, same transfers)."""
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = PerturbedBoxMesh((4, 4, 4))
     rng = np.random.default_rng(0)
@@ -97,8 +97,8 @@ def test_csr_pmg_backend_matches_dofmap_curved():
 def test_csr_pmg_backend_fcg_and_sigma_field():
     """operator='csr' through solve_pcg with a sigma FIELD (baked into
     the assembled diagonal via the m3 mechanism) matches dofmap."""
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = BoxMesh((4, 4, 4))
     sig = lambda x: 1.0 + 3.0 * x[0] * x[1]
@@ -117,9 +117,9 @@ def test_csr_pmg_backend_fcg_and_sigma_field():
 def test_csr_fine_operator_matches_assembled_shift():
     """The csr level apply IS the assembled shifted matrix: A_bc +
     diag(sigma*m3) applied to a random vector, bc rows = identity."""
-    from pmg_dolfinx_tpu.fem.assembly import (assemble_stiffness,
+    from pmg_dolfinx_jax.fem.assembly import (assemble_stiffness,
                                               lumped_mass_np)
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = BoxMesh((3, 4, 3))
     P, sigma = 3, 4.0

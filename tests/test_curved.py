@@ -13,13 +13,13 @@ import numpy as np
 import pytest
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import (
+from pmg_dolfinx_jax.fem.assembly import (
     assemble_stiffness,
     l2_error_collocated,
 )
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh, default_warp
-from pmg_dolfinx_tpu.models.poisson import PoissonProblem, f_rhs, u_exact
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh, default_warp
+from pmg_dolfinx_jax.models.poisson import PoissonProblem, f_rhs, u_exact
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 
 def test_perturbed_mesh_geometry():
@@ -59,7 +59,7 @@ def test_perturbed_full_solve_and_convergence():
     errs = []
     for n in (4, 8):
         mesh = PerturbedBoxMesh((n, n, n), warp=default_warp(0.06))
-        from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
+        from pmg_dolfinx_jax.fem.assembly import assemble_rhs
 
         hier = PMGHierarchy(mesh, degrees=(1, P), kappa=2.0, coarse="cg",
                             operator="lattice")
@@ -77,10 +77,10 @@ def test_perturbed_full_solve_and_convergence():
 
 def test_fast_paths_reject_nonaffine_mesh():
     mesh = PerturbedBoxMesh((4, 4, 4))
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian
-    from pmg_dolfinx_tpu.solvers.fdm import FastDiagonalizationSolver
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
+    from pmg_dolfinx_jax.solvers.fdm import FastDiagonalizationSolver
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     with pytest.raises(ValueError, match="axis-aligned"):
         KronLaplacian(mesh, 2)
@@ -98,8 +98,8 @@ def test_fast_paths_reject_nonaffine_mesh():
 
 def test_perturbed_dist_lattice_matches_single():
     """Sharded lattice backend on deformed hexes == single device."""
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     mesh = PerturbedBoxMesh((8, 4, 4), warp=default_warp(0.05))
     single = PMGHierarchy(mesh, degrees=(1, 3), kappa=2.0, coarse="cg",
@@ -117,7 +117,7 @@ def test_refined_solve_on_curved_mesh():
     """Mixed-precision refinement with the f64 LATTICE residual (the
     Kronecker form doesn't exist on non-affine hexes) converges past the
     f32 floor on a perturbed mesh."""
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs
 
     mesh = PerturbedBoxMesh((6, 6, 6))
     h = PMGHierarchy(mesh, degrees=(1, 3), kappa=2.0, coarse="cg",
@@ -134,9 +134,9 @@ def test_refined_solve_on_curved_mesh():
 def test_refined_solve_variable_kappa():
     """Refinement with a per-cell DG-0 coefficient (f64 lattice
     residual path, box mesh)."""
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_rhs_variable, kappa_linear
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_rhs_variable, kappa_linear
 
     mesh = BoxMesh((6, 6, 6))
     h = PMGHierarchy(mesh, degrees=(1, 3), kappa=kappa_linear, coarse="cg",
@@ -152,8 +152,8 @@ def test_perturbed_dist_refined():
     """Sharded refinement on deformed hexes uses the f64 LATTICE
     residual (the kron form would silently solve the wrong operator;
     code-review r2 finding)."""
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     mesh = PerturbedBoxMesh((8, 4, 4), warp=default_warp(0.05))
     dist = DistPMG(mesh, n_devices=4, degrees=(1, 3), kappa=2.0,

@@ -17,24 +17,24 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import (
+from pmg_dolfinx_jax.fem.assembly import (
     assemble_rhs,
     l2_error_collocated,
 )
-from pmg_dolfinx_tpu.fem.geometry import (
+from pmg_dolfinx_jax.fem.geometry import (
     geometry_factors,
     quadrature_weights_3d,
     tabulate_geometry_dphi,
 )
-from pmg_dolfinx_tpu.fem.gll import derivative_matrix, interpolation_matrix_1d
-from pmg_dolfinx_tpu.fem.unstructured import (
+from pmg_dolfinx_jax.fem.gll import derivative_matrix, interpolation_matrix_1d
+from pmg_dolfinx_jax.fem.unstructured import (
     UnstructuredHexMesh,
     l_shaped_hex_mesh,
 )
-from pmg_dolfinx_tpu.models.poisson import f_rhs
-from pmg_dolfinx_tpu.ops.interpolate import prolongate, restrict
-from pmg_dolfinx_tpu.ops.laplacian import laplacian_apply
-from pmg_dolfinx_tpu.ops.unstructured import (
+from pmg_dolfinx_jax.models.poisson import f_rhs
+from pmg_dolfinx_jax.ops.interpolate import prolongate, restrict
+from pmg_dolfinx_jax.ops.laplacian import laplacian_apply
+from pmg_dolfinx_jax.ops.unstructured import (
     dss_device_tables,
     dss_gather,
     dss_laplacian_apply,
@@ -43,7 +43,7 @@ from pmg_dolfinx_tpu.ops.unstructured import (
     dss_restrict,
     dss_scatter,
 )
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 
 def _u_exact(x):
@@ -195,7 +195,7 @@ def test_manufactured_convergence_fcg():
 
 
 def test_dss_requires_layout_mesh():
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
 
     with pytest.raises(ValueError, match="dss"):
         PMGHierarchy(BoxMesh((2, 2, 2)), degrees=(1, 2), operator="dss")
@@ -207,7 +207,7 @@ def test_schwarz_dss_matches_box_schwarz_on_wrapped_box():
     (own-h neighbour augmentation == the global 1D matrix block at
     uniform spacing): residual trajectories (permutation-invariant)
     must match to roundoff."""
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
 
     box = BoxMesh((4, 4, 4))
     un = UnstructuredHexMesh(box.geometry_x, np.asarray(box.geometry_dofmap))
@@ -223,7 +223,7 @@ def test_schwarz_dss_matches_box_schwarz_on_wrapped_box():
 
 
 def test_schwarz_dss_curved_varkappa_reduces_iterations():
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
 
     pb = PerturbedBoxMesh((6, 6, 6))
     unc = UnstructuredHexMesh(pb.geometry_x, np.asarray(pb.geometry_dofmap))

@@ -12,15 +12,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-from pmg_dolfinx_tpu.fem.unstructured import (
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+from pmg_dolfinx_jax.fem.unstructured import (
     UnstructuredHexMesh,
     l_shaped_hex_mesh,
 )
-from pmg_dolfinx_tpu.models.poisson import f_rhs
-from pmg_dolfinx_tpu.parallel.dss_dist import DSSDist, DSSPartition
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.models.poisson import f_rhs
+from pmg_dolfinx_jax.parallel.dss_dist import DSSDist, DSSPartition
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs the 8-virtual-device CPU mesh")
@@ -90,7 +90,7 @@ def test_rejects_unsupported():
     mesh = l_shaped_hex_mesh(2)
     with pytest.raises(ValueError, match="amg"):
         DSSDist(mesh, n_devices=8, degrees=(1, 3), coarse="amg")
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
 
     with pytest.raises(ValueError, match="Unstructured"):
         DSSDist(BoxMesh((2, 2, 2)), n_devices=8)

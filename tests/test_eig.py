@@ -8,10 +8,10 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_stiffness, lumped_mass_np
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.models.poisson import kappa_linear
-from pmg_dolfinx_tpu.solvers.eig import lowest_eigenpairs
+from pmg_dolfinx_jax.fem.assembly import assemble_stiffness, lumped_mass_np
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.models.poisson import kappa_linear
+from pmg_dolfinx_jax.solvers.eig import lowest_eigenpairs
 
 
 def _scipy_lowest(mesh, P, kappa, k, sigma=0.0):
@@ -57,7 +57,7 @@ def test_lowest_modes_mixed_bc_and_sigma():
 def test_lowest_modes_sigma_field():
     """A sigma(x) reaction FIELD routes to the general (FCG) inverse
     even on an axis-aligned constant-kappa mesh — vs scipy."""
-    from pmg_dolfinx_tpu.models.poisson import sigma_linear
+    from pmg_dolfinx_jax.models.poisson import sigma_linear
 
     mesh = BoxMesh((5, 5, 5))
     P, k = 2, 3
@@ -91,7 +91,7 @@ def test_lowest_modes_graded():
     """Graded spacing: the batched-FDM inverse action diagonalizes the
     graded pencils exactly, so shift-invert LOBPCG converges to the
     scipy spectrum of the graded assembled pencil."""
-    from pmg_dolfinx_tpu.fem.mesh import geometric_spacing
+    from pmg_dolfinx_jax.fem.mesh import geometric_spacing
 
     mesh = BoxMesh((6, 6, 6), spacing=(geometric_spacing(6, 4.0),
                                        None, geometric_spacing(6, 2.0)))

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, assemble_stiffness, l2_error
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.models.poisson import f_rhs, u_exact
-from pmg_dolfinx_tpu.solvers.fdm import FastDiagonalizationSolver
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs, assemble_stiffness, l2_error
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.models.poisson import f_rhs, u_exact
+from pmg_dolfinx_jax.solvers.fdm import FastDiagonalizationSolver
 
 
 def test_fdm_exact_direct_solve():
@@ -53,14 +53,14 @@ def test_fdm_preconditions_variable_coefficient():
     Jacobi-CG needs many more."""
     import jax
 
-    from pmg_dolfinx_tpu.fem.geometry import (
+    from pmg_dolfinx_jax.fem.geometry import (
         geometry_factors,
         quadrature_weights_3d,
         tabulate_geometry_dphi,
     )
-    from pmg_dolfinx_tpu.fem.gll import derivative_matrix
-    from pmg_dolfinx_tpu.ops.laplacian import laplacian_apply
-    from pmg_dolfinx_tpu.solvers.cg import cg_solve, fcg_solve
+    from pmg_dolfinx_jax.fem.gll import derivative_matrix
+    from pmg_dolfinx_jax.ops.laplacian import laplacian_apply
+    from pmg_dolfinx_jax.solvers.cg import cg_solve, fcg_solve
 
     mesh = BoxMesh((4, 4, 4))
     P = 2
@@ -89,7 +89,7 @@ def test_fdm_preconditions_variable_coefficient():
     assert r / np.linalg.norm(np.asarray(b)) < 1e-8
     assert niter <= 15, niter
     # Jacobi-CG needs substantially more iterations on the same problem.
-    from pmg_dolfinx_tpu.fem.assembly import stiffness_diagonal_np
+    from pmg_dolfinx_jax.fem.assembly import stiffness_diagonal_np
 
     dinv = jnp.asarray(1.0 / stiffness_diagonal_np(mesh, P, float(kappa_c.mean())))
     _, info_j = cg_solve(A, b, jnp.zeros_like(b), dinv, rtol=1e-10, maxiter=200)
@@ -103,9 +103,9 @@ def test_fdm_preconditions_deformed_mesh():
     solution."""
     import scipy.sparse.linalg as spla
 
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh, default_warp
-    from pmg_dolfinx_tpu.ops.lattice import LatticeLaplacian
-    from pmg_dolfinx_tpu.solvers.cg import fcg_solve
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh, default_warp
+    from pmg_dolfinx_jax.ops.lattice import LatticeLaplacian
+    from pmg_dolfinx_jax.solvers.cg import fcg_solve
 
     nc, P, kappa = (6, 6, 6), 3, 2.0
     mesh = PerturbedBoxMesh(nc, warp=default_warp(0.05))

@@ -13,13 +13,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.models.poisson import PoissonProblem, f_rhs
-from pmg_dolfinx_tpu.parallel.dist import DistPMG
-from pmg_dolfinx_tpu.parallel.fdm_dist import DistFDM
-from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
-from pmg_dolfinx_tpu.solvers.fdm import FastDiagonalizationSolver
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.models.poisson import PoissonProblem, f_rhs
+from pmg_dolfinx_jax.parallel.dist import DistPMG
+from pmg_dolfinx_jax.parallel.fdm_dist import DistFDM
+from pmg_dolfinx_jax.parallel.grid2d import GridPMG
+from pmg_dolfinx_jax.solvers.fdm import FastDiagonalizationSolver
 
 
 @pytest.mark.parametrize(
@@ -50,7 +50,7 @@ def test_dist_fdm_matches_single_device(shards, kappa, sigma, Pdeg, nc):
 def test_dist_fdm_solution_is_exact():
     """The distributed direct solve really solves: A u == b through the
     oracle operator, and nonzero Dirichlet rows pass through."""
-    from pmg_dolfinx_tpu.ops.laplacian import MatFreeLaplacian
+    from pmg_dolfinx_jax.ops.laplacian import MatFreeLaplacian
 
     mesh = BoxMesh((8, 4, 4))
     Pdeg, kappa = 3, 2.0
@@ -129,7 +129,7 @@ def test_dist_hmg_fdm_bottom_grid_matches_single():
 def test_hmg_fdm_bottom_rejected_where_unsupported():
     """bottom='fdm' is dist-only (gathered build_hmg) and
     constant-coefficient only (general family)."""
-    from pmg_dolfinx_tpu.solvers.hmg import build_hmg, build_hmg_general
+    from pmg_dolfinx_jax.solvers.hmg import build_hmg, build_hmg_general
 
     mesh = BoxMesh((4, 4, 4))
     with pytest.raises(ValueError, match="bottom"):
@@ -146,7 +146,7 @@ def test_hmg_fdm_bottom_rejected_where_unsupported():
 def test_dist_fdm_coarse_grid_matches_single(shards, sigma, kappa):
     """GridPMG coarse='fdm' with coarse_cfg dist=True on multi-axis
     layouts: exact trajectory match vs the single-device FDM coarse."""
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     nc = (4, 8, 4)
     mesh = BoxMesh(nc)

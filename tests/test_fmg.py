@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.models.poisson import f_rhs, kappa_linear
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.models.poisson import f_rhs, kappa_linear
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 KAPPA = 2.0
 
@@ -80,7 +80,7 @@ def test_fmg_dist_matches_single_device_trajectory():
     ops, coarse-solve, prolong up) must be trajectory-exact vs the
     single-device one — the rank-count-invariance contract extends to
     the nested iteration."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     nc = (8, 4, 4)
     mesh = BoxMesh(nc)
@@ -99,7 +99,7 @@ def test_fmg_dist_matches_single_device_trajectory():
 
 
 def test_fmg_grid_matches_single_device_trajectory():
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     nc = (8, 8, 4)
     mesh = BoxMesh(nc)
@@ -155,8 +155,8 @@ def test_fmg_refined_start():
 def test_fmg_refined_sharded_matches_single():
     """DistPMG/GridPMG solve_refined(fmg=True): the sharded refined loop
     seeded by the sharded FMG guess matches the single-device one."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = BoxMesh((8, 4, 4))
     hier = PMGHierarchy(mesh, degrees=(1, 3), kappa=KAPPA,

@@ -11,9 +11,9 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_stiffness, lumped_mass_np
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.solvers.transient import (
+from pmg_dolfinx_jax.fem.assembly import assemble_stiffness, lumped_mass_np
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.solvers.transient import (
     heat_fdm_evolve, source_scales, wave_leapfrog_evolve,
     wave_newmark_evolve)
 
@@ -134,7 +134,7 @@ def test_cn_driven_keeps_second_order():
 
 @pytest.mark.parametrize("kind", ["heat", "wave"])
 def test_dist_driven_matches_single(kind):
-    from pmg_dolfinx_tpu.parallel.transient_dist import (
+    from pmg_dolfinx_jax.parallel.transient_dist import (
         heat_dist_evolve, wave_newmark_dist_evolve)
 
     mesh = BoxMesh((4, 4, 4))
@@ -164,13 +164,12 @@ def test_dist_driven_matches_single(kind):
 
 @pytest.mark.parametrize("B", [1, 2])
 def test_packed_driven_matches_per_rhs(B):
-    """Driven sources on the LANE-PACKED serving steppers (r4: f/f_time
-    on heat/wave/semilinear packed evolvers, batch AND single-RHS
-    kernels): every column matches the per-RHS driven evolvers at f32."""
-    from pmg_dolfinx_tpu.models.semilinear import cubic
-    from pmg_dolfinx_tpu.solvers.transient import (
-        heat_packed_evolve, semilinear_fdm_evolve,
-        semilinear_packed_evolve, wave_packed_evolve)
+    """Driven sources on the batched serving steppers (batch_evolve over
+    the heat/wave/semilinear evolvers, B=1 included): every column
+    matches the per-RHS driven evolvers at f32."""
+    from pmg_dolfinx_jax.models.semilinear import cubic
+    from pmg_dolfinx_jax.solvers.transient import (
+        batch_evolve, semilinear_fdm_evolve)
 
     mesh = BoxMesh((6, 6, 6))
     P, dt, nsteps = 3, 1e-3, 5
@@ -188,9 +187,7 @@ def test_packed_driven_matches_per_rhs(B):
                           dtype=jnp.float32, f=f, f_time=_g)
     ref = np.stack([np.asarray(ev1(U0[k], nsteps)).reshape(-1)
                     for k in range(B)])
-    got = np.asarray(heat_packed_evolve(
-        mesh, P, kappa=KAPPA, dt=dt, B=B, scheme="cn", f=f,
-        f_time=_g)(U0, nsteps))
+    got = np.asarray(batch_evolve(ev1)(U0, nsteps))
     assert np.linalg.norm(got - ref) < 2e-5 * np.linalg.norm(ref)
 
     # wave, both integrators
@@ -202,9 +199,7 @@ def test_packed_driven_matches_per_rhs(B):
                       for a in evp(U0[k], V0[k], nsteps))
                 for k in range(B)]
         uref = np.stack([r[0] for r in refs])
-        UT, VT = wave_packed_evolve(mesh, P, kappa=KAPPA, dt=dt, B=B,
-                                    scheme=scheme, f=f, f_time=_g)(
-            U0, V0, nsteps)
+        UT, VT = batch_evolve(evp)(U0, V0, nsteps)
         assert np.linalg.norm(np.asarray(UT) - uref) < \
             2e-5 * np.linalg.norm(uref), scheme
 
@@ -215,7 +210,5 @@ def test_packed_driven_matches_per_rhs(B):
                                 f_time=_g)
     ref = np.stack([np.asarray(evs(U0[k], nsteps)).reshape(-1)
                     for k in range(B)])
-    got = np.asarray(semilinear_packed_evolve(
-        mesh, P, nl, kappa=KAPPA, dt=dt, B=B, scheme="cnab", f=f,
-        f_time=_g)(U0, nsteps))
+    got = np.asarray(batch_evolve(evs)(U0, nsteps))
     assert np.linalg.norm(got - ref) < 2e-5 * np.linalg.norm(ref)

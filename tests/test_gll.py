@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.gll import (
+from pmg_dolfinx_jax.fem.gll import (
     derivative_matrix,
     gauss_legendre,
     gauss_lobatto,

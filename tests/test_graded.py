@@ -20,10 +20,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_stiffness
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, geometric_spacing
-from pmg_dolfinx_tpu.models.poisson import PoissonProblem
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.fem.assembly import assemble_stiffness
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, geometric_spacing
+from pmg_dolfinx_jax.models.poisson import PoissonProblem
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 
 def _graded_mesh(nc=(4, 3, 5), **kw):
@@ -76,9 +76,9 @@ def test_operator_oracle_parity_graded(operator):
     """Every backend's apply == the scipy-assembled matrix on a graded
     mesh (the general backends inherit it from the geometry pipeline;
     the kron path from the non-uniform 1D assembly)."""
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian
-    from pmg_dolfinx_tpu.ops.laplacian import MatFreeLaplacian
-    from pmg_dolfinx_tpu.ops.lattice import LatticeLaplacian
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
+    from pmg_dolfinx_jax.ops.laplacian import MatFreeLaplacian
+    from pmg_dolfinx_jax.ops.lattice import LatticeLaplacian
 
     mesh = _graded_mesh()
     P, kappa = 3, 2.0
@@ -91,20 +91,18 @@ def test_operator_oracle_parity_graded(operator):
     assert np.allclose(y, A @ u, atol=1e-11), np.abs(y - A @ u).max()
 
 
-def test_kron_blocked_oracle_parity_graded():
-    """The fused Mosaic pair (interpret mode on CPU) is value-agnostic
-    in the axis factors — graded matrices ride through unchanged."""
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian
-    from pmg_dolfinx_tpu.ops.pallas_kron_blocked import PallasKronBlocked
+def test_kron_f32_oracle_parity_graded():
+    """The f32 working-precision kron apply (the production dtype) on
+    graded spacing agrees with the f64 apply to f32 rounding."""
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
 
     mesh = _graded_mesh((8, 4, 4))
     P, kappa = 3, 2.0
     ref = KronLaplacian(mesh, P, kappa=kappa, dtype=jnp.float64)
-    op = PallasKronBlocked(mesh, P, kappa=kappa)
+    op = KronLaplacian(mesh, P, kappa=kappa, dtype=jnp.float32)
     u = np.random.default_rng(1).standard_normal(mesh.num_dofs(P))
-    shape = mesh.lattice_shape(P)
-    y = np.asarray(op(jnp.asarray(u, jnp.float32).reshape(shape)))
-    y_ref = np.asarray(ref(jnp.asarray(u))).reshape(shape)
+    y = np.asarray(op(jnp.asarray(u, jnp.float32)))
+    y_ref = np.asarray(ref(jnp.asarray(u)))
     rel = np.linalg.norm(y - y_ref) / np.linalg.norm(y_ref)
     assert rel < 1e-5, rel
 
@@ -115,7 +113,7 @@ def test_fdm_exact_solve_graded():
     including mixed faces and Robin ends."""
     import scipy.sparse.linalg as spla
 
-    from pmg_dolfinx_tpu.solvers.fdm import FastDiagonalizationSolver
+    from pmg_dolfinx_jax.solvers.fdm import FastDiagonalizationSolver
 
     faces = ((True, True), (True, False), (False, True))
     robin = ((0.0, 0.0), (0.0, 1.5), (0.0, 0.0))
@@ -167,8 +165,8 @@ def test_h_interpolation_graded_exact():
     """The graded 1D h-transfer reproduces every polynomial up to
     degree P exactly on the merged-cell node sets (the nodal-nesting
     property uniform transfers have by construction)."""
-    from pmg_dolfinx_tpu.fem.gll import gauss_lobatto
-    from pmg_dolfinx_tpu.solvers.hmg import axis_h_interpolation
+    from pmg_dolfinx_jax.fem.gll import gauss_lobatto
+    from pmg_dolfinx_jax.solvers.hmg import axis_h_interpolation
 
     P, ncc, f = 3, 3, 2
     h_fine = np.random.default_rng(0).uniform(0.3, 2.0, ncc * f)
@@ -190,7 +188,7 @@ def test_h_interpolation_graded_exact():
 def test_coarsen_cell_field_volume_weighted():
     """DG-0 coarsening on a graded mesh weights children by their
     actual volumes (plain mean would bias toward small cells)."""
-    from pmg_dolfinx_tpu.solvers.hmg import coarsen_cell_field
+    from pmg_dolfinx_jax.solvers.hmg import coarsen_cell_field
 
     h = (np.array([1.0, 3.0]), np.array([1.0, 1.0]), np.array([1.0, 1.0]))
     # cell order x slowest: the first 4 cells are the x=0 layer
@@ -223,8 +221,8 @@ def test_hmg_general_graded_curved():
     """The general-family h-MG on a GRADED PerturbedBoxMesh with
     variable kappa: rediscretized graded levels (the warp evaluates at
     the same merged corner positions) match the exact dense coarse."""
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_rhs_variable, kappa_linear
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_rhs_variable, kappa_linear
 
     mesh = PerturbedBoxMesh((8, 8, 8),
                             spacing=(None, geometric_spacing(8, 4.0), None))
@@ -243,8 +241,8 @@ def test_hmg_general_graded_curved():
 def test_hmg_gathered_sharded_graded_matches_single():
     """The GATHERED hmg coarse on graded sharded layouts (slab + grid)
     rides the single-device graded hierarchy — trajectory-exact."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = BoxMesh((8, 4, 4), spacing=(geometric_spacing(8, 4.0),
                                        None, None))
@@ -268,7 +266,7 @@ def test_hmg_dist_slab_graded_matches_single():
     sharded graded x axis gets per-shard row-stacked TRANSFER blocks
     (local_axis_h_interpolation) alongside the stacked stiffness —
     trajectory-exact vs the single-device graded hmg."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     mesh = BoxMesh((16, 4, 4), spacing=(geometric_spacing(16, 5.0), None,
                                         geometric_spacing(4, 2.0)))
@@ -287,7 +285,7 @@ def test_hmg_dist_grid_graded_gather_free():
     """The fully gather-free graded hierarchy: every axis graded AND
     sharded, dist h-MG levels + distributed-FDM bottom (graded pencils)
     — no gather anywhere, trajectory-exact vs single device."""
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = BoxMesh((8, 8, 8), spacing=(geometric_spacing(8, 4.0),) * 3)
     prob = PoissonProblem(mesh=mesh, degrees=(1, 3), kappa=2.0,
@@ -305,9 +303,9 @@ def test_hmg_dist_general_graded_curved():
     """General-family dist h-MG on a GRADED curved mesh with variable
     kappa: rediscretized graded lattice h-levels in the multi-axis
     layout — trajectory-exact vs single device."""
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_rhs_variable, kappa_linear
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_rhs_variable, kappa_linear
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = PerturbedBoxMesh((8, 8, 8),
                             spacing=(None, geometric_spacing(8, 4.0), None))
@@ -327,7 +325,7 @@ def test_dist_slab_graded_matches_single():
     """x-slab decomposition of a graded-x mesh: each shard's local axis
     stiffness differs (row-stacked spec-P(axis) blocks) — trajectories
     must still match the single-device solve exactly."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     mesh = BoxMesh((8, 4, 5), spacing=(geometric_spacing(8, 5.0), None,
                                        geometric_spacing(5, 3.0)))
@@ -345,8 +343,8 @@ def test_dist_fdm_graded_matches_single():
     """Distributed FDM (pencil all_to_all transposes) on a graded mesh:
     the boundary-embedded transform matrices diagonalize the graded
     per-axis pencils — value-exact vs the single-device direct solve."""
-    from pmg_dolfinx_tpu.parallel.fdm_dist import DistFDM
-    from pmg_dolfinx_tpu.solvers.fdm import FastDiagonalizationSolver
+    from pmg_dolfinx_jax.parallel.fdm_dist import DistFDM
+    from pmg_dolfinx_jax.solvers.fdm import FastDiagonalizationSolver
 
     mesh = BoxMesh((4, 4, 4),
                    spacing=tuple(geometric_spacing(4, 3.0) for _ in range(3)))
@@ -361,19 +359,20 @@ def test_dist_fdm_graded_matches_single():
 
 
 def test_packed_kron_graded_matches_base():
-    """The lane-packed serving kernels inherit grading from the base
-    per-axis factors (value-agnostic packing)."""
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian
-    from pmg_dolfinx_tpu.ops.pallas_kron_packed import PackedKronBatch
+    """A batch of graded-mesh kron applies as ONE vmapped program (the
+    serving layout of `solve_many` / `batch_evolve`) matches the
+    per-column applies."""
+    import jax
+
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
 
     mesh = BoxMesh((4, 4, 4),
                    spacing=(geometric_spacing(4, 4.0), None, None))
     P, B = 3, 3
     base = KronLaplacian(mesh, P, kappa=2.0, dtype=jnp.float32)
-    op = PackedKronBatch(mesh, P, kappa=2.0, B=B, interpret=True)
     U = np.random.default_rng(4).standard_normal(
         (B, mesh.num_dofs(P))).astype(np.float32)
-    Y = np.asarray(op(jnp.asarray(U)))
+    Y = np.asarray(jax.jit(jax.vmap(base))(jnp.asarray(U)))
     for k in range(B):
         y_ref = np.asarray(base(jnp.asarray(U[k])))
         rel = np.linalg.norm(Y[k] - y_ref) / np.linalg.norm(y_ref)
@@ -389,7 +388,7 @@ def test_grid_graded_matches_single(shards, operator):
     """2D/3D grid decompositions on graded meshes (every sharded axis
     graded): trajectory-exact vs single device, kron AND the general
     lattice backend."""
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     nc = (4, 4, 4)
     mesh = BoxMesh(nc, spacing=tuple(geometric_spacing(n, 4.0) for n in nc))

@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.models.poisson import PoissonProblem, f_rhs
-from pmg_dolfinx_tpu.parallel.grid2d import GridPartition, GridPMG
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.models.poisson import PoissonProblem, f_rhs
+from pmg_dolfinx_jax.parallel.grid2d import GridPartition, GridPMG
 
 
 def test_grid_partition_roundtrip_and_weights():
@@ -117,8 +117,8 @@ def test_grid_hmg_distributed_coarse_general_family():
     sigma, every rediscretized lattice h-level in the multi-axis
     layout. Same level sizes as the single-device general build, so
     trajectories must match the gathered/single hmg coarse."""
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_rhs_variable, kappa_linear
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_rhs_variable, kappa_linear
 
     sigma = 5.0
     mesh = PerturbedBoxMesh((4, 8, 4))
@@ -141,7 +141,7 @@ def test_grid_hmg_distributed_coarse_rejects_unalignable():
     """dist=True needs every h-level's cells divisible per axis by the
     shard grid; a (4,4,4) mesh on (4,1,1) shards cannot coarsen at all
     -> clear error."""
-    from pmg_dolfinx_tpu.parallel.grid2d import build_hmg_grid
+    from pmg_dolfinx_jax.parallel.grid2d import build_hmg_grid
 
     mesh = BoxMesh((4, 4, 4))
     with pytest.raises(ValueError, match="not h-coarsenable"):
@@ -220,7 +220,7 @@ def test_grid_lattice_backend_matches_single():
 def test_grid_lattice_variable_kappa_matches_single():
     """Variable DG-0 kappa on a multi-axis (2,2,2) grid (previously
     slab-only; VERDICT r1 items 3+4)."""
-    from pmg_dolfinx_tpu.models.poisson import f_rhs_variable, kappa_linear
+    from pmg_dolfinx_jax.models.poisson import f_rhs_variable, kappa_linear
 
     nc = (4, 4, 4)
     single = PoissonProblem(nc=nc, degrees=(1, 3), kappa=kappa_linear,
@@ -238,8 +238,8 @@ def test_grid_lattice_variable_kappa_matches_single():
 def test_grid_lattice_perturbed_hexes_matches_single():
     """General (non-affine) hexes distributed over a 2D device grid:
     trajectories and solutions match the single-device lattice path."""
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = PerturbedBoxMesh((4, 4, 2))
     kappa = 2.0
@@ -254,35 +254,34 @@ def test_grid_lattice_perturbed_hexes_matches_single():
     assert np.allclose(u_d, np.asarray(u_s), atol=1e-9)
 
 
-def test_grid_lattice_blocked_matches_lattice():
-    """Fused-kernel lattice backend on the grid == XLA lattice grid
-    backend (perturbed hexes, variable kappa, f32)."""
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_rhs_variable, kappa_linear
+def test_grid_lattice_f32_matches_f64():
+    """The f32 working-precision lattice backend on the grid tracks the
+    f64 grid trajectory (perturbed hexes, variable kappa)."""
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_rhs_variable, kappa_linear
 
     mesh = PerturbedBoxMesh((4, 4, 2))
     b = assemble_rhs(mesh, 3, f_rhs_variable())
     kwargs = dict(shards=(2, 2), degrees=(1, 3), kappa=kappa_linear,
-                  coarse="cg", dtype=jnp.float32)
-    ref = GridPMG(mesh, operator="lattice", **kwargs)
-    blk = GridPMG(mesh, operator="lattice_blocked", **kwargs)
+                  coarse="cg", operator="lattice")
+    ref = GridPMG(mesh, dtype=jnp.float64, **kwargs)
+    blk = GridPMG(mesh, dtype=jnp.float32, **kwargs)
     _, rn_ref = ref.solve(b, num_cycles=4)
     _, rn_blk = blk.solve(b, num_cycles=4)
     assert np.allclose(rn_ref, rn_blk, rtol=1e-4), (rn_ref, rn_blk)
 
 
 @pytest.mark.parametrize("shards", [(2, 2, 2), (1, 2, 4), (2, 4, 1)])
-def test_grid_kron_blocked_matches_single(shards):
-    """The blocked fused-kernel pair under multi-axis decompositions
-    (r2 VERDICT missing #1): trajectories track the single-device
-    kron_blocked hierarchy on every shard layout, including y/z-only
-    grids (the edge-partial exchange paths)."""
+def test_grid_kron_f32_matches_single(shards):
+    """The f32 kron backend under multi-axis decompositions:
+    trajectories track the single-device f32 hierarchy on every shard
+    layout, including y/z-only grids."""
     nc = (4, 4, 4)
     kwargs = dict(degrees=(1, 3), kappa=2.0, coarse="cg",
                   dtype=jnp.float32)
-    single = PoissonProblem(nc=nc, operator="kron_blocked", **kwargs)
+    single = PoissonProblem(nc=nc, operator="kron", **kwargs)
     u_s, rn_s = single.solve(num_cycles=5)
-    grid = GridPMG(single.mesh, shards=shards, operator="kron_blocked",
+    grid = GridPMG(single.mesh, shards=shards, operator="kron",
                    **kwargs)
     b = assemble_rhs(single.mesh, 3, f_rhs(2.0))
     u_d, rn_d = grid.solve(b, num_cycles=5)
@@ -298,9 +297,9 @@ def test_grid_dofmap_oracle_matches_single():
     single-device dofmap hierarchy exactly (f64), on a CURVED mesh with
     variable DG-0 kappa and the sigma shift — the most general problem
     the framework expresses."""
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_rhs_variable, kappa_linear
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_rhs_variable, kappa_linear
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = PerturbedBoxMesh((4, 4, 2))
     kwargs = dict(degrees=(1, 3), kappa=kappa_linear, coarse="cg",
@@ -314,16 +313,16 @@ def test_grid_dofmap_oracle_matches_single():
     assert np.allclose(u_d, np.asarray(u_s), atol=1e-10)
 
 
-def test_grid_kron_blocked_apply_oracle():
-    """Grid blocked apply == the f64 assembled operator (single apply,
+def test_grid_kron_f32_apply_oracle():
+    """Grid f32 kron apply == the f64 assembled operator (single apply,
     (2,2,2) shards, all three exchange paths active)."""
-    from pmg_dolfinx_tpu.fem.assembly import assemble_stiffness
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.fem.assembly import assemble_stiffness
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = BoxMesh((4, 4, 4))
     kappa = 2.0
     grid = GridPMG(mesh, shards=(2, 2, 2), degrees=(1, 3), kappa=kappa,
-                   coarse="cg", dtype=jnp.float32, operator="kron_blocked")
+                   coarse="cg", dtype=jnp.float32, operator="kron")
     A = assemble_stiffness(mesh, 3, kappa=kappa).toarray()
     rng = np.random.default_rng(11)
     x = rng.standard_normal(mesh.num_dofs(3))
@@ -346,16 +345,16 @@ def test_grid_kron_blocked_apply_oracle():
     assert err < 1e-5, err
 
 
-def test_grid_kron_blocked_sigma_and_fdm_coarse():
-    """Shifted family + global fdm coarse through the grid blocked
-    backend: matches the single-device shifted kron_blocked solve."""
+def test_grid_kron_f32_sigma_and_fdm_coarse():
+    """Shifted family + global fdm coarse through the grid f32 kron
+    backend: matches the single-device shifted f32 solve."""
     nc = (4, 4, 4)
     sigma = 37.0
     kwargs = dict(degrees=(1, 3), kappa=2.0, coarse="fdm",
                   dtype=jnp.float32, sigma=sigma)
-    single = PoissonProblem(nc=nc, operator="kron_blocked", **kwargs)
+    single = PoissonProblem(nc=nc, operator="kron", **kwargs)
     u_s, rn_s = single.solve(num_cycles=5)
-    grid = GridPMG(single.mesh, shards=(2, 2, 2), operator="kron_blocked",
+    grid = GridPMG(single.mesh, shards=(2, 2, 2), operator="kron",
                    **kwargs)
     b = assemble_rhs(single.mesh, 3, f_rhs(2.0, sigma=sigma))
     u_d, rn_d = grid.solve(b, num_cycles=5)
@@ -363,13 +362,13 @@ def test_grid_kron_blocked_sigma_and_fdm_coarse():
     assert np.allclose(u_d, np.asarray(u_s), atol=1e-5)
 
 
-def test_grid_kron_blocked_refined_solve():
-    """Mixed-precision refinement: Mosaic working cycle + XLA kron f64
+def test_grid_kron_refined_solve():
+    """Mixed-precision refinement: f32 kron working cycle + f64 kron
     residual on the (2,2,2) grid."""
     nc = (4, 4, 4)
     grid = GridPMG(BoxMesh(nc), shards=(2, 2, 2), degrees=(1, 3),
                    kappa=2.0, coarse="cg", dtype=jnp.float32,
-                   operator="kron_blocked")
+                   operator="kron")
     b = assemble_rhs(BoxMesh(nc), 3, f_rhs(2.0))
     _, rn = grid.solve_refined(b, num_cycles=12)
     r0 = np.linalg.norm(b)
@@ -389,14 +388,18 @@ def test_grid_lattice_refined_solve():
     assert rn_d[-1] / r0 < 1e-6, np.array(rn_d) / r0
 
 
-def test_grid_lattice_blocked_refined_solve():
-    """Refinement with the Mosaic working cycle + XLA lattice f64
-    residual (the kernels are f32-only)."""
+def test_grid_lattice_curved_refined_solve():
+    """Refinement with the f32 lattice working cycle + f64 lattice
+    residual on CURVED hexes over the (2,2,2) grid."""
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+
     nc = (4, 4, 4)
-    grid = GridPMG(BoxMesh(nc), shards=(2, 2, 2), degrees=(1, 3),
+    mesh = PerturbedBoxMesh(nc)
+    grid = GridPMG(mesh, shards=(2, 2, 2), degrees=(1, 3),
                    kappa=2.0, coarse="cg", dtype=jnp.float32,
-                   operator="lattice_blocked")
-    b = assemble_rhs(BoxMesh(nc), 3, f_rhs(2.0))
-    _, rn = grid.solve_refined(b, num_cycles=12)
+                   operator="lattice")
+    b = assemble_rhs(mesh, 3, f_rhs(2.0))
+    # Curved cells: the point-Jacobi cycle contracts ~0.35/cycle.
+    _, rn = grid.solve_refined(b, num_cycles=30)
     r0 = np.linalg.norm(b)
     assert rn[-1] / r0 < 1e-6, np.array(rn) / r0

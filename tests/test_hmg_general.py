@@ -1,7 +1,7 @@
 """General-family h-multigrid coarse solver (r2 VERDICT missing #2).
 
 The reference solves its p=1 coarse problem with hypre BoomerAMG on any
-assembled matrix (src/amg.hpp:11-119). The TPU-native replacement for
+assembled matrix (src/amg.hpp:11-119). The replacement for
 meshes where the constant-coefficient kron h-MG refuses — curved
 (perturbed) hexes and variable DG-0 kappa — is a rediscretized lattice
 h-hierarchy (`solvers.hmg.build_hmg_general`): coarse meshes re-evaluate
@@ -19,19 +19,19 @@ import numpy as np
 import pytest
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, assemble_stiffness
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.models.poisson import (
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs, assemble_stiffness
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.models.poisson import (
     f_rhs,
     f_rhs_tensor,
     f_rhs_variable,
     kappa_linear,
 )
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 
 def test_coarsen_cell_field():
-    from pmg_dolfinx_tpu.solvers.hmg import coarsen_cell_field
+    from pmg_dolfinx_jax.solvers.hmg import coarsen_cell_field
 
     nc_f, nc_c = (4, 4, 2), (2, 2, 1)
     vals = np.arange(np.prod(nc_f), dtype=float)
@@ -81,7 +81,7 @@ def test_curved_hmg_sigma():
     rediscretizes per h-level with each level's own lumped mass)."""
     import scipy.sparse as sp
 
-    from pmg_dolfinx_tpu.fem.assembly import lumped_mass_np
+    from pmg_dolfinx_jax.fem.assembly import lumped_mass_np
 
     sigma = 37.0
     mesh = PerturbedBoxMesh((4, 4, 2))
@@ -99,7 +99,7 @@ def test_curved_hmg_sigma():
 def test_grid_curved_hmg_matches_single():
     """Gathered redundant general-hmg coarse on a (2,2) device grid:
     trajectories match the single-device hmg solve exactly (f64)."""
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = PerturbedBoxMesh((4, 4, 2))
     b = assemble_rhs(mesh, 3, f_rhs_variable())
@@ -115,7 +115,7 @@ def test_grid_curved_hmg_matches_single():
 
 def test_dist_curved_hmg_matches_single():
     """Same through the 1D slab decomposition (4 shards)."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     mesh = PerturbedBoxMesh((4, 4, 2))
     b = assemble_rhs(mesh, 3, f_rhs(2.0))
@@ -134,10 +134,10 @@ def test_vcycle_preconditioned_cg_beats_jacobi():
     --pc hmg, the reference's KSPCG+PCHYPRE composition,
     amg/main.cpp:173-211) must cut the iteration count by an
     AMG-class factor vs plain Jacobi-CG on a non-eigenvector rhs."""
-    from pmg_dolfinx_tpu.ops.lattice import LatticeLaplacian
-    from pmg_dolfinx_tpu.solvers.cg import cg_solve
-    from pmg_dolfinx_tpu.solvers.hmg import build_hmg
-    from pmg_dolfinx_tpu.solvers.pmg import kron_cycle_ops, v_cycle
+    from pmg_dolfinx_jax.ops.lattice import LatticeLaplacian
+    from pmg_dolfinx_jax.solvers.cg import cg_solve
+    from pmg_dolfinx_jax.solvers.hmg import build_hmg
+    from pmg_dolfinx_jax.solvers.pmg import kron_cycle_ops, v_cycle
 
     mesh = BoxMesh((16, 16, 16))  # large enough that Jacobi-CG's O(1/h)
     op = LatticeLaplacian(mesh, 1, kappa=2.0, dtype=jnp.float64)
@@ -169,7 +169,7 @@ def test_vcycle_preconditioned_cg_beats_jacobi():
 
 
 def test_semicoarsen_sizes():
-    from pmg_dolfinx_tpu.solvers.hmg import semicoarsen_sizes
+    from pmg_dolfinx_jax.solvers.hmg import semicoarsen_sizes
 
     sizes = semicoarsen_sizes((8, 8, 16), axes=(2,))
     assert sizes == [(8, 8, 16), (8, 8, 8), (8, 8, 4), (8, 8, 2)]
@@ -192,7 +192,7 @@ def test_semicoarsening_rescues_anisotropic_hmg():
     strength-of-connection analogue (reference src/amg.hpp BoomerAMG).
     Measured (maxiter=80, rtol 1e-10): iso 80+ (cap), semi 33,
     semi + smoother_iters=4: 15 vs 11 for the exact dense coarse."""
-    from pmg_dolfinx_tpu.solvers.hmg import semicoarsen_sizes
+    from pmg_dolfinx_jax.solvers.hmg import semicoarsen_sizes
 
     K = np.diag([1.0, 1.0, 64.0])
     nc = (8, 8, 16)
@@ -213,9 +213,9 @@ def test_semicoarsening_sharded_matches_single():
     """coarse_cfg['sizes'] rides the gathered hmg coarse on DistPMG and
     GridPMG: same custom (semi-coarsened) hierarchy, trajectory-exact vs
     the single-device solve."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
-    from pmg_dolfinx_tpu.solvers.hmg import semicoarsen_sizes
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.solvers.hmg import semicoarsen_sizes
 
     K = np.diag([1.0, 1.0, 16.0])
     nc = (8, 4, 8)
@@ -241,7 +241,7 @@ def test_hmg_sizes_validation():
     """Malformed coarse_cfg['sizes'] must fail fast with a clear error
     (review finding: non-nested levels previously died in cryptic
     reshape errors deep in setup)."""
-    from pmg_dolfinx_tpu.solvers.hmg import build_hmg, validate_hmg_sizes
+    from pmg_dolfinx_jax.solvers.hmg import build_hmg, validate_hmg_sizes
 
     mesh = BoxMesh((8, 8, 8))
     with pytest.raises(ValueError, match="nested"):
@@ -260,8 +260,8 @@ def test_semicoarsening_dist_hmg():
     stays trajectory-exact vs the gathered/single-device solve; a
     shard-misaligned hierarchy fails fast (review finding: sizes was
     silently dropped with dist=True)."""
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
-    from pmg_dolfinx_tpu.solvers.hmg import semicoarsen_sizes
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.solvers.hmg import semicoarsen_sizes
 
     nc = (8, 4, 8)
     mesh = BoxMesh(nc)
@@ -282,7 +282,7 @@ def test_semicoarsening_dist_hmg():
 
 def test_semicoarsen_axes_autodetect():
     """Strong-axis detection from the coefficient AND cell aspect."""
-    from pmg_dolfinx_tpu.solvers.hmg import semicoarsen_axes
+    from pmg_dolfinx_jax.solvers.hmg import semicoarsen_axes
 
     mesh = BoxMesh((8, 8, 8))
     # tensor anisotropy: strong z
@@ -299,7 +299,7 @@ def test_semicoarsen_axes_autodetect():
 
 
 def test_hmg_sizes_rejects_short_tuples():
-    from pmg_dolfinx_tpu.solvers.hmg import validate_hmg_sizes
+    from pmg_dolfinx_jax.solvers.hmg import validate_hmg_sizes
 
     with pytest.raises(ValueError, match="triples"):
         validate_hmg_sizes((8, 8, 8), [(8, 8, 8), (4, 4)])

@@ -1,4 +1,4 @@
-"""Lattice-form (TPU fast path) operator vs the assembled oracle.
+"""Lattice-form (structured fast path) operator vs the assembled oracle.
 
 Gate pattern as for the dofmap operator (`mat_free --mat_comp`,
 examples/mat_free/main.cpp:270-289): the fast kernel must reproduce the
@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_stiffness
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.ops.lattice import LatticeLaplacian, axis_matrices
+from pmg_dolfinx_jax.fem.assembly import assemble_stiffness
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.ops.lattice import LatticeLaplacian, axis_matrices
 
 
 @pytest.mark.parametrize(
@@ -52,7 +52,7 @@ def test_axis_matrices_structure():
 
 
 def test_kron_vs_assembled():
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
 
     for nc, P in [((2, 2, 2), 1), ((3, 2, 4), 3), ((2, 2, 2), 6)]:
         mesh = BoxMesh(nc, extent=(1.0, 2.0, 0.5))  # anisotropic box
@@ -71,13 +71,13 @@ def test_lattice_v2_and_affine_vs_assembled():
     the oracle exactly in f64."""
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.fem.geometry import (
+    from pmg_dolfinx_jax.fem.geometry import (
         geometry_factors,
         quadrature_weights_3d,
         tabulate_geometry_dphi,
     )
-    from pmg_dolfinx_tpu.fem.gll import gauss_lobatto
-    from pmg_dolfinx_tpu.ops.lattice import (
+    from pmg_dolfinx_jax.fem.gll import gauss_lobatto
+    from pmg_dolfinx_jax.ops.lattice import (
         geometry_to_qlattice,
         lattice_laplacian_apply_v2,
     )
@@ -116,7 +116,7 @@ def test_high_degree_beyond_reference(P):
     (laplacian.hpp:336-346,468-479) — our dispatch is degree-generic."""
     mesh = BoxMesh((1, 2, 1))
     kappa = 2.0
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
 
     op = KronLaplacian(mesh, P, kappa=kappa, dtype=jnp.float64)
     A = assemble_stiffness(mesh, P, kappa=kappa)
@@ -129,9 +129,9 @@ def test_lattice_laplacian_variable_kappa_and_curved():
     """LatticeLaplacian accepts per-cell DG-0 / callable kappa and curved
     meshes (the p=1 operator behind examples/amg.py's general family):
     apply AND diagonal must match the assembled oracle."""
-    from pmg_dolfinx_tpu.fem.assembly import assemble_stiffness, resolve_kappa
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.models.poisson import kappa_linear
+    from pmg_dolfinx_jax.fem.assembly import assemble_stiffness, resolve_kappa
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.models.poisson import kappa_linear
 
     mesh = PerturbedBoxMesh((3, 4, 5))
     P = 2

@@ -8,9 +8,9 @@ tolerance — the sharpest possible check of the lifting algebra."""
 import jax.numpy as jnp
 import numpy as np
 
-from pmg_dolfinx_tpu.fem.assembly import lifted_rhs
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.fem.assembly import lifted_rhs
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 
 def _g_linear(x):
@@ -54,7 +54,7 @@ def test_lifted_linear_solution_is_exact_curved_mixed():
 
 def test_lifted_fdm_direct_one_shot():
     """FDM direct solve of the lifted system: exact in one application."""
-    from pmg_dolfinx_tpu.solvers.fdm import FastDiagonalizationSolver
+    from pmg_dolfinx_jax.solvers.fdm import FastDiagonalizationSolver
 
     mesh = BoxMesh((4, 5, 4))
     P, kappa = 4, 3.0

@@ -2,8 +2,8 @@
 
 The reference has no line smoothers; its answer to anisotropy is hypre
 BoomerAMG's strength-of-connection coarsening at p=1 (src/amg.hpp:11-119).
-This module pins the TPU-native replacement: dense within-line block
-inverses applied as ONE batched MXU matvec (no sequential Thomas sweep),
+This module pins the replacement: dense within-line block
+inverses applied as ONE batched matvec (no sequential Thomas sweep),
 used as the Chebyshev preconditioner at the p-levels
 (``PMGHierarchy(smoother='line')``) and/or the h-MG levels
 (``coarse_cfg['smoother']='line'``).
@@ -24,21 +24,21 @@ import numpy as np
 import pytest
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, assemble_stiffness
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.models.poisson import (
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs, assemble_stiffness
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.models.poisson import (
     f_rhs_tensor,
     f_rhs_variable,
     kappa_aniso,
     kappa_linear,
 )
-from pmg_dolfinx_tpu.solvers.line import (
+from pmg_dolfinx_jax.solvers.line import (
     LINE_BLOCK_DOF_LIMIT,
     line_block_inverses,
     line_precond_apply,
     parse_line_smoother,
 )
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 DIAG64 = np.diag([1.0, 1.0, 64.0])
 
@@ -170,7 +170,7 @@ def test_line_sigma_shifted():
     """The line blocks carry the sigma lumped-mass shift (reaction-
     diffusion family): shifted solve matches the assembled shifted
     system."""
-    from pmg_dolfinx_tpu.fem.assembly import lumped_mass_np
+    from pmg_dolfinx_jax.fem.assembly import lumped_mass_np
 
     SIGMA = 11.0
     mesh = BoxMesh((6, 6, 8))
@@ -192,8 +192,8 @@ def test_hmg_line_smoother_sharded_matches_single():
     """coarse_cfg['smoother']='line' rides the gathered hmg coarse on
     DistPMG and GridPMG: trajectory-exact vs the single-device solve
     (the redundant-global coarse hierarchy is identical)."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     K = np.diag([1.0, 1.0, 16.0])
     nc = (8, 4, 8)
@@ -221,8 +221,8 @@ def test_dist_hmg_line_matches_single():
     the global build's blocks ride the duplicated-plane layouts of every
     h-level (slab AND multi-axis grid), trajectory-exact vs the
     single-device gathered hierarchy."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     K = np.diag([1.0, 1.0, 16.0])
     mesh = BoxMesh((8, 4, 8))
@@ -252,7 +252,7 @@ def test_dist_hmg_line_general_family_matches_single():
     """Same for the GENERAL family (curved hexes + variable DG-0 kappa):
     build_hmg_grid_general threads the line blocks through the
     rediscretized multi-axis h-levels."""
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = PerturbedBoxMesh((8, 4, 8))
     b = jnp.asarray(np.asarray(
@@ -272,7 +272,7 @@ def test_dist_hmg_line_general_family_matches_single():
 
 def test_dist_hmg_line_x_rejected():
     """dist=True line relaxation along the slab axis must fail fast."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     mesh = BoxMesh((8, 4, 4))
     K = np.diag([16.0, 1.0, 1.0])
@@ -282,12 +282,11 @@ def test_dist_hmg_line_x_rejected():
                 coarse_cfg=dict(dist=True, smoother="line"))
 
 
-def test_line_fuse_smoother_rejected():
+def test_line_rejects_unknown_backend():
     mesh = BoxMesh((8, 8, 8))
-    with pytest.raises(ValueError, match="fuse_smoother"):
+    with pytest.raises(ValueError, match="unknown operator backend"):
         PMGHierarchy(mesh, degrees=(1, 3), kappa=2.0, dtype=jnp.float32,
-                     operator="kron_blocked", fuse_smoother=True,
-                     smoother="line")
+                     operator="fused", smoother="line")
 
 
 def test_plevel_line_sharded_matches_single():
@@ -295,8 +294,8 @@ def test_plevel_line_sharded_matches_single():
     residual trajectories match exactly (the line blocks live in the
     duplicated-plane layouts; lines are shard-local, zero extra
     communication)."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     K = np.diag([1.0, 1.0, 16.0])
     mesh = BoxMesh((8, 4, 8))
@@ -323,7 +322,7 @@ def test_plevel_line_sharded_matches_single():
 def test_plevel_line_kron_sharded_matches_single():
     """Same invariance on the kron backend (lattice-shaped vectors) with
     the FDM coarse."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     K = np.diag([1.0, 1.0, 16.0])
     mesh = BoxMesh((8, 4, 8))
@@ -344,8 +343,8 @@ def test_plevel_line_kron_sharded_matches_single():
 def test_line_sharded_axis_rejected():
     """Lines must not span shards: DistPMG rejects line-x (x is the slab
     axis); GridPMG rejects a line axis with shards>1."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = BoxMesh((8, 4, 4))
     K = np.diag([16.0, 1.0, 1.0])  # strongest axis = x -> auto picks x

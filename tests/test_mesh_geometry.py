@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import geometry_factors_np
-from pmg_dolfinx_tpu.fem.geometry import quadrature_weights_3d
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.fem.assembly import geometry_factors_np
+from pmg_dolfinx_jax.fem.geometry import quadrature_weights_3d
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
 
 
 def test_dofmap_basic():
@@ -81,7 +81,7 @@ def test_geometry_factors_distorted_vs_jnp():
     """jnp path == numpy path on a randomly perturbed (non-affine) mesh."""
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.fem.geometry import (
+    from pmg_dolfinx_jax.fem.geometry import (
         geometry_factors,
         tabulate_geometry_dphi,
     )

@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, assemble_stiffness, l2_error
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.models.poisson import f_rhs_mixed, u_exact_mixed
-from pmg_dolfinx_tpu.solvers.fdm import FastDiagonalizationSolver
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs, assemble_stiffness, l2_error
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.models.poisson import f_rhs_mixed, u_exact_mixed
+from pmg_dolfinx_jax.solvers.fdm import FastDiagonalizationSolver
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 MIXED = ((True, False), (False, False), (True, True))  # D-N, N-N, D-D
 
@@ -36,9 +36,9 @@ def test_marker_honors_faces():
 def test_operator_oracle_parity_mixed(operator):
     """Every backend's apply == the scipy-assembled matrix with the
     flag-derived marker (identity rows at Dirichlet dofs only)."""
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian
-    from pmg_dolfinx_tpu.ops.laplacian import MatFreeLaplacian
-    from pmg_dolfinx_tpu.ops.lattice import LatticeLaplacian
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
+    from pmg_dolfinx_jax.ops.laplacian import MatFreeLaplacian
+    from pmg_dolfinx_jax.ops.lattice import LatticeLaplacian
 
     mesh = BoxMesh((3, 4, 3), dirichlet_faces=MIXED)
     P, kappa = 3, 2.0
@@ -87,7 +87,7 @@ def test_fdm_exact_mixed_and_pure_neumann_shifted():
         b = np.random.default_rng(1).standard_normal(mesh.num_dofs(P))
         bc = np.asarray(mesh.boundary_dof_marker(P))
         b[bc] = 0.0
-        from pmg_dolfinx_tpu.fem.assembly import lumped_mass_np
+        from pmg_dolfinx_jax.fem.assembly import lumped_mass_np
 
         A = assemble_stiffness(mesh, P, kappa=kappa).tolil()
         if sigma:
@@ -125,7 +125,7 @@ def test_hmg_coarse_mixed_matches_direct():
 
 
 def test_schwarz_mixed_dense_matches_batched_and_smooths():
-    from pmg_dolfinx_tpu.solvers.schwarz import (
+    from pmg_dolfinx_jax.solvers.schwarz import (
         build_schwarz,
         schwarz_precond_apply,
     )
@@ -150,8 +150,8 @@ def test_sharded_mixed_matches_single():
     """Mixed-BC markers flow through the distributed layouts: DistPMG
     (fdm coarse, both gathered and pencil-distributed) and GridPMG are
     trajectory-exact vs single device."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = BoxMesh((8, 4, 4), dirichlet_faces=MIXED)
     kappa = 2.0
@@ -175,7 +175,7 @@ def test_sharded_mixed_matches_single():
 
 
 def test_dist_fdm_mixed_matches_single():
-    from pmg_dolfinx_tpu.parallel.fdm_dist import DistFDM
+    from pmg_dolfinx_jax.parallel.fdm_dist import DistFDM
 
     mesh = BoxMesh((6, 4, 8), dirichlet_faces=MIXED)
     P = 2
@@ -186,15 +186,15 @@ def test_dist_fdm_mixed_matches_single():
     assert err < 1e-13, err
 
 
-def test_kron_blocked_mixed_parity():
-    """The fused Mosaic pair inherits mixed BCs through the 3D marker
-    (the 1D axis matrices are raw/no-bc): parity vs the assembled
-    system in interpret mode."""
-    from pmg_dolfinx_tpu.ops.pallas_kron_blocked import PallasKronBlocked
+def test_kron_f32_mixed_parity():
+    """The f32 kron apply (the production dtype) inherits mixed BCs
+    through the 3D marker (the 1D axis matrices are raw/no-bc): parity
+    vs the assembled system to f32 rounding."""
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
 
     mesh = BoxMesh((3, 4, 3), dirichlet_faces=MIXED)
     P, kappa = 3, 2.0
-    op = PallasKronBlocked(mesh, P, kappa=kappa, interpret=True)
+    op = KronLaplacian(mesh, P, kappa=kappa, dtype=jnp.float32)
     A = assemble_stiffness(mesh, P, kappa=kappa)
     u = np.random.default_rng(8).standard_normal(mesh.num_dofs(P))
     y = np.asarray(op(jnp.asarray(u, jnp.float32)))
@@ -206,7 +206,7 @@ def test_kron_blocked_mixed_parity():
 def test_curved_mixed_bc_lattice():
     """General family: curved hexes + mixed faces through the lattice
     backend (marker-generic) — oracle parity + FCG convergence."""
-    from pmg_dolfinx_tpu.ops.lattice import LatticeLaplacian
+    from pmg_dolfinx_jax.ops.lattice import LatticeLaplacian
 
     mesh = PerturbedBoxMesh((4, 4, 4), dirichlet_faces=MIXED)
     P, kappa = 3, 2.0

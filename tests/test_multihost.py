@@ -16,11 +16,11 @@ import sys
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.models.poisson import f_rhs
-from pmg_dolfinx_tpu.parallel.dist import DistPMG
-from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.models.poisson import f_rhs
+from pmg_dolfinx_jax.parallel.dist import DistPMG
+from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
 _WORKER = os.path.join(os.path.dirname(__file__), "multihost_worker.py")
 
@@ -74,7 +74,7 @@ def test_two_processes_match_each_other(two_process_results):
         assert np.allclose(r0["rn_dist"], r1["rn_dist"], rtol=1e-12)
         assert np.allclose(r0["rn_grid"], r1["rn_grid"], rtol=1e-12)
         assert np.allclose(r0["rn_lat"], r1["rn_lat"], rtol=1e-12)
-        assert np.allclose(r0["rn_kb"], r1["rn_kb"], rtol=1e-12)
+        assert np.allclose(r0["rn_f32"], r1["rn_f32"], rtol=1e-12)
         assert np.allclose(r0["rn_hmg"], r1["rn_hmg"], rtol=1e-12)
         assert np.allclose(r0["rn_aniso"], r1["rn_aniso"], rtol=1e-12)
         assert np.allclose(r0["rn_line"], r1["rn_line"], rtol=1e-12)
@@ -105,7 +105,7 @@ def test_two_processes_match_single_process(two_process_results):
     assert np.allclose(r0["rn_grid"], rn_grid, rtol=1e-10), (
         r0["rn_grid"], rn_grid)
 
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
 
     mesh_l = PerturbedBoxMesh((4, 4, 4))
     b_l = assemble_rhs(mesh_l, 3, f_rhs(kappa))
@@ -117,12 +117,13 @@ def test_two_processes_match_single_process(two_process_results):
 
     import jax.numpy as jnp
 
-    grid_kb = GridPMG(mesh_g, shards=(2, 2, 2), degrees=(1, 3), kappa=kappa,
-                      coarse="cg", operator="kron_blocked",
-                      dtype=jnp.float32)
-    _, rn_kb = grid_kb.solve(b_g, num_cycles=5)
+    grid_f32 = GridPMG(mesh_g, shards=(2, 2, 2), degrees=(1, 3),
+                       kappa=kappa, coarse="cg", operator="kron",
+                       dtype=jnp.float32)
+    _, rn_f32 = grid_f32.solve(b_g, num_cycles=5)
     # f32 path: Gloo vs single-process reduction orders differ slightly.
-    assert np.allclose(r0["rn_kb"], rn_kb, rtol=5e-4), (r0["rn_kb"], rn_kb)
+    assert np.allclose(r0["rn_f32"], rn_f32, rtol=5e-4), (
+        r0["rn_f32"], rn_f32)
 
     mesh_h = BoxMesh((4, 8, 4))
     b_h = assemble_rhs(mesh_h, 3, f_rhs(kappa))
@@ -132,7 +133,7 @@ def test_two_processes_match_single_process(two_process_results):
     assert np.allclose(r0["rn_hmg"], rn_hmg, rtol=1e-10), (
         r0["rn_hmg"], rn_hmg)
 
-    from pmg_dolfinx_tpu.models.poisson import f_rhs_tensor
+    from pmg_dolfinx_jax.models.poisson import f_rhs_tensor
 
     kdiag = (1.0, 2.0, 8.0)
     b_t = assemble_rhs(mesh, 3, f_rhs_tensor(np.diag(kdiag)))

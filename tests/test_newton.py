@@ -10,13 +10,13 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import (
+from pmg_dolfinx_jax.fem.assembly import (
     assemble_rhs, assemble_stiffness, l2_error, lumped_mass_np)
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.models import semilinear
-from pmg_dolfinx_tpu.models.poisson import u_exact
-from pmg_dolfinx_tpu.solvers.newton import newton_solve
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.models import semilinear
+from pmg_dolfinx_jax.models.poisson import u_exact
+from pmg_dolfinx_jax.solvers.newton import newton_solve
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 KAPPA = 2.0
 SIGMA = 0.7
@@ -89,8 +89,8 @@ def test_newton_bratu():
 def test_newton_general_backend_curved_varkappa():
     """Semilinear family on curved hexes + variable DG-0 kappa through
     the lattice backend, dense-twin verified."""
-    from pmg_dolfinx_tpu.fem.assembly import resolve_kappa
-    from pmg_dolfinx_tpu.models.poisson import kappa_linear
+    from pmg_dolfinx_jax.fem.assembly import resolve_kappa
+    from pmg_dolfinx_jax.models.poisson import kappa_linear
 
     mesh = PerturbedBoxMesh((4, 4, 3))
     kc, _ = resolve_kappa(mesh, kappa_linear)
@@ -120,11 +120,11 @@ def test_newton_sharded_matches_single(layout):
     u1, info1 = newton_solve(single, b, nonlin, rtol=1e-11,
                              lin_rtol=1e-10)
     if layout == "slab":
-        from pmg_dolfinx_tpu.parallel.dist import DistPMG
+        from pmg_dolfinx_jax.parallel.dist import DistPMG
 
         sharded = DistPMG(mesh, n_devices=4, **kw)
     else:
-        from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+        from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
         sharded = GridPMG(mesh, shards=(2, 2), **kw)
     u2, info2 = newton_solve(sharded, b, nonlin, rtol=1e-11,

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_stiffness
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.ops.laplacian import MatFreeLaplacian
+from pmg_dolfinx_jax.fem.assembly import assemble_stiffness
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.ops.laplacian import MatFreeLaplacian
 
 
 @pytest.mark.parametrize(
@@ -82,7 +82,7 @@ def test_batched_geometry_matches_unbatched():
 
 
 def test_vtk_and_npz_writers(tmp_path):
-    from pmg_dolfinx_tpu.utils.io import write_npz, write_vtk
+    from pmg_dolfinx_jax.utils.io import write_npz, write_vtk
 
     mesh = BoxMesh((2, 2, 2))
     P = 2
@@ -102,19 +102,19 @@ def test_variable_dg0_coefficient():
     """Per-cell (DG-0) kappa — the reference kernel's entity_constants
     argument (laplacian.hpp:144,230) — through the dofmap and lattice
     backends, against the oracle with per-cell coefficients."""
-    from pmg_dolfinx_tpu.fem.geometry import (
+    from pmg_dolfinx_jax.fem.geometry import (
         geometry_factors,
         quadrature_weights_3d,
         tabulate_geometry_dphi,
     )
-    from pmg_dolfinx_tpu.ops.laplacian import laplacian_apply
-    from pmg_dolfinx_tpu.ops.lattice import (
+    from pmg_dolfinx_jax.ops.laplacian import laplacian_apply
+    from pmg_dolfinx_jax.ops.lattice import (
         LatticeLaplacian,
         geometry_to_qlattice,
         lattice_laplacian_apply,
         axis_matrices,
     )
-    from pmg_dolfinx_tpu.fem.gll import derivative_matrix
+    from pmg_dolfinx_jax.fem.gll import derivative_matrix
 
     mesh = BoxMesh((3, 2, 2))
     P = 2
@@ -125,7 +125,7 @@ def test_variable_dg0_coefficient():
     y_ref = A @ x
 
     # dofmap backend: coeff is per-cell natively
-    import pmg_dolfinx_tpu.fem.geometry as geo
+    import pmg_dolfinx_jax.fem.geometry as geo
 
     G, _ = geo.geometry_factors(
         mesh.geometry_x, mesh.geometry_dofmap,
@@ -157,7 +157,7 @@ def test_variable_dg0_coefficient():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from pmg_dolfinx_tpu.utils.checkpoint import load_state, save_state
+    from pmg_dolfinx_jax.utils.checkpoint import load_state, save_state
 
     mesh = BoxMesh((2, 2, 2))
     u = np.random.default_rng(0).standard_normal(mesh.num_dofs(2))
@@ -176,9 +176,9 @@ def test_refined_resume_from_checkpoint(tmp_path):
     and lands at the same accuracy as an uninterrupted run."""
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-    from pmg_dolfinx_tpu.models.poisson import PoissonProblem, f_rhs
-    from pmg_dolfinx_tpu.utils.checkpoint import load_state, save_state
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+    from pmg_dolfinx_jax.models.poisson import PoissonProblem, f_rhs
+    from pmg_dolfinx_jax.utils.checkpoint import load_state, save_state
 
     prob = PoissonProblem(nc=(4, 4, 4), degrees=(1, 3), kappa=2.0,
                           dtype=jnp.float32, coarse="cg", operator="kron")

@@ -11,12 +11,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.models.poisson import PoissonProblem, f_rhs
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-from pmg_dolfinx_tpu.ops.laplacian import MatFreeLaplacian
-from pmg_dolfinx_tpu.parallel.dist import DistPMG
-from pmg_dolfinx_tpu.parallel.partition import SlabPartition
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.models.poisson import PoissonProblem, f_rhs
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+from pmg_dolfinx_jax.ops.laplacian import MatFreeLaplacian
+from pmg_dolfinx_jax.parallel.dist import DistPMG
+from pmg_dolfinx_jax.parallel.partition import SlabPartition
 
 
 def test_partition_roundtrip_and_weights():
@@ -79,7 +79,7 @@ def test_dist_pmg_matches_single_device_trajectory():
 
 
 def test_dist_lattice_matches_single_device():
-    """Sharded lattice (MXU fast path) backend == single-device dofmap
+    """Sharded lattice (structured fast path) backend == single-device dofmap
     trajectory — operator, calibration and full V-cycle."""
     nc = (8, 4, 4)
     kappa = 2.0
@@ -134,19 +134,18 @@ def test_dist_kron_operator_matches_single():
     assert np.allclose(yd, ys, atol=1e-11)
 
 
-def test_dist_kron_blocked_matches_single():
-    """Sharded blocked-Pallas kron backend (interpret mode on CPU) ==
-    single-device kron_blocked trajectories: the interface exchange slots
-    between the two Mosaic kernels via the `exchange` hook."""
+def test_dist_kron_f32_matches_single():
+    """Sharded f32 kron backend (the production dtype) == single-device
+    f32 trajectories to f32 reduction-order noise."""
     import jax.numpy as jnp
 
     nc = (8, 4, 4)
     kappa = 2.0
     single = PoissonProblem(nc=nc, degrees=(1, 3), kappa=kappa, coarse="cg",
-                            operator="kron_blocked", dtype=jnp.float32)
+                            operator="kron", dtype=jnp.float32)
     u_s, rn_s = single.solve(num_cycles=5)
     dist = DistPMG(single.mesh, n_devices=4, degrees=(1, 3), kappa=kappa,
-                   coarse="cg", operator="kron_blocked", dtype=jnp.float32)
+                   coarse="cg", operator="kron", dtype=jnp.float32)
     b = assemble_rhs(single.mesh, 3, f_rhs(kappa))
     u_d, rn_d = dist.solve(b, num_cycles=5)
     assert np.allclose(rn_d, rn_s, rtol=1e-4), (rn_s, rn_d)
@@ -229,7 +228,7 @@ def test_dist_hmg_distributed_coarse_matches_single(sigma):
 def test_dist_hmg_distributed_coarse_rejects_unalignable():
     """dist=True needs every h-level's x-cells divisible by n_shards; an
     8-shard build of an 8-cell axis cannot coarsen at all -> clear error."""
-    from pmg_dolfinx_tpu.parallel.dist import build_hmg_dist
+    from pmg_dolfinx_jax.parallel.dist import build_hmg_dist
 
     mesh = BoxMesh((8, 4, 4))
     with pytest.raises(ValueError, match="not h-coarsenable"):
@@ -261,9 +260,9 @@ def test_dist_rejects_unknown_operator():
     mesh = BoxMesh((4, 4, 4))
     with pytest.raises(ValueError, match="unknown operator"):
         DistPMG(mesh, n_devices=4, degrees=(1, 2), operator="nope")
-    with pytest.raises(ValueError, match="GridPMG"):
+    with pytest.raises(ValueError, match="unknown operator"):
         DistPMG(mesh, n_devices=4, degrees=(1, 2),
-                operator="lattice_blocked")
+                operator="fused")
 
 
 def test_dist_solve_resume_matches_uninterrupted():

@@ -9,7 +9,7 @@ landing at the discretization-error level.
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.models.poisson import PoissonProblem, fit_box_cells
+from pmg_dolfinx_jax.models.poisson import PoissonProblem, fit_box_cells
 
 
 @pytest.mark.parametrize("coarse", ["smoother", "cg", "direct"])
@@ -47,8 +47,8 @@ def test_pmg_error_reaches_discretization_level():
     solved discrete system (V-cycle introduces no extra error)."""
     import scipy.sparse.linalg as spla
 
-    from pmg_dolfinx_tpu.fem.assembly import assemble_stiffness, l2_error
-    from pmg_dolfinx_tpu.models.poisson import u_exact
+    from pmg_dolfinx_jax.fem.assembly import assemble_stiffness, l2_error
+    from pmg_dolfinx_jax.models.poisson import u_exact
 
     prob = PoissonProblem(nc=(5, 5, 5), degrees=(1, 3), kappa=2.0, coarse="cg")
     u, _ = prob.solve(num_cycles=12)
@@ -75,7 +75,7 @@ def test_fit_box_cells():
 
 
 def test_pmg_lattice_backend_matches_dofmap():
-    """The lattice (MXU fast path) hierarchy reproduces the dofmap
+    """The lattice (structured fast path) hierarchy reproduces the dofmap
     hierarchy's V-cycle trajectory to float64 rounding."""
     nc = (4, 4, 4)
     a = PoissonProblem(nc=nc, degrees=(1, 3), kappa=2.0, coarse="cg",
@@ -129,7 +129,7 @@ def test_pmg_hmg_coarse_converges():
 
 
 def test_hmg_axis_interpolation():
-    from pmg_dolfinx_tpu.solvers.hmg import axis_h_interpolation, coarsenable_levels
+    from pmg_dolfinx_jax.solvers.hmg import axis_h_interpolation, coarsenable_levels
 
     I = axis_h_interpolation(2, P=1)
     assert I.shape == (5, 3)

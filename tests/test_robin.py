@@ -6,7 +6,7 @@ boundary mass ``integral_Gamma alpha u v ds`` — diagonal under GLL surface
 collocation (fem.assembly.robin_mass_np) — and the surface data term
 ``integral_Gamma g v ds`` (robin_rhs_np). On the axis-aligned box the
 boundary mass factors EXACTLY per axis (``alpha e_end e_end^T (x) M (x)
-M``), so the whole Kronecker family — kron/kron_blocked applies, the FDM
+M``), so the whole Kronecker family — kron applies, the FDM
 direct solver, the kron h-MG — carries Robin as scalar 1D stiffness
 end-point updates; the general backends bake it into the pointwise m3
 shift like a sigma field.
@@ -20,7 +20,7 @@ import scipy.sparse.linalg as spla
 import jax
 import jax.numpy as jnp
 
-from pmg_dolfinx_tpu.fem.assembly import (
+from pmg_dolfinx_jax.fem.assembly import (
     assemble_rhs,
     assemble_stiffness,
     l2_error,
@@ -28,17 +28,17 @@ from pmg_dolfinx_tpu.fem.assembly import (
     robin_rhs_np,
     shifted_mass_np,
 )
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.models.poisson import (
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.models.poisson import (
     PoissonProblem,
     f_rhs_mixed,
     grad_u_exact_mixed,
     robin_data,
     u_exact_mixed,
 )
-from pmg_dolfinx_tpu.ops.kron import KronLaplacian, axis_stiffness_mass
-from pmg_dolfinx_tpu.solvers.fdm import FastDiagonalizationSolver
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.ops.kron import KronLaplacian, axis_stiffness_mass
+from pmg_dolfinx_jax.solvers.fdm import FastDiagonalizationSolver
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 DF = ((True, False), (False, False), (True, True))
 ROBIN = ((0.0, 2.5), (1.7, 0.3), (0.0, 0.0))
@@ -272,7 +272,7 @@ def test_refined_solve_robin():
     ("lattice", 2.0),
 ])
 def test_dist_operator_matches_oracle(operator, kappa):
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     mesh = BoxMesh((8, 4, 4), dirichlet_faces=DF, robin=ROBIN)
     A = assemble_stiffness(mesh, 3, kappa=kappa)
@@ -293,7 +293,7 @@ def test_dist_solve_matches_single(operator, coarse, sigma):
     """Sharded Robin trajectories == single-device (all coarse modes are
     rebuilt from the Robin-flagged mesh; lattice bakes sigma*mass +
     boundary mass into one m3)."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     prob = _robin_problem(nc=(8, 4, 4), coarse=coarse, operator=operator,
                           sigma=sigma)
@@ -305,16 +305,16 @@ def test_dist_solve_matches_single(operator, coarse, sigma):
     assert np.allclose(u_d, np.asarray(u_s), atol=1e-9)
 
 
-def test_dist_kron_blocked_robin_matches_single():
-    """The fused Mosaic pair (interpret mode on CPU) carries the Robin
-    end updates through the per-shard stacked Ktx factor."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+def test_dist_kron_f32_robin_matches_single():
+    """The f32 sharded kron backend carries the Robin end updates
+    through the per-shard stacked Kx factor."""
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     prob = _robin_problem(nc=(8, 4, 4), coarse="cg",
-                          operator="kron_blocked", dtype=jnp.float32)
+                          operator="kron", dtype=jnp.float32)
     u_s, rn_s = prob.solve(num_cycles=5)
     dist = DistPMG(prob.mesh, n_devices=4, degrees=(1, 3), kappa=2.0,
-                   coarse="cg", operator="kron_blocked",
+                   coarse="cg", operator="kron",
                    dtype=jnp.float32)
     u_d, rn_d = dist.solve(np.asarray(prob.b), num_cycles=5)
     assert np.allclose(rn_d, rn_s, rtol=1e-4), (rn_s, rn_d)
@@ -326,7 +326,7 @@ def test_dist_refined_robin_matches_single(operator):
     """Sharded mixed-precision refinement on the Robin system: the f64
     residual operator carries the Robin term (stacked Kx on the kron
     path, baked m3 on the lattice path)."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     # The all-Robin y axis contracts slower (~0.55/cycle) than the
     # all-Dirichlet problems — identical single vs sharded either way.
@@ -347,7 +347,7 @@ def test_distfdm_robin_matches_single_fdm():
     """The gather-free distributed FDM (pencil all_to_all transposes)
     carries the Robin end updates in its embedded per-axis transforms —
     value-exact vs the single-device exact solver."""
-    from pmg_dolfinx_tpu.parallel.fdm_dist import DistFDM
+    from pmg_dolfinx_jax.parallel.fdm_dist import DistFDM
 
     mesh = BoxMesh((8, 4, 4), dirichlet_faces=DF, robin=ROBIN)
     P4, kappa = 4, (2.0, 0.5, 3.0)
@@ -369,7 +369,7 @@ def test_dist_hmg_distributed_robin_matches_single(cfg):
     rediscretized end updates (stacked per-shard x blocks), the 'fdm'
     bottom makes the whole hierarchy gather-free — trajectory-exact vs
     the single-device gathered hmg."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     prob = _robin_problem(nc=(8, 4, 4), coarse="hmg", operator="kron")
     u_s, rn_s = prob.solve(num_cycles=6)
@@ -384,7 +384,7 @@ def test_dist_fdm_dist_coarse_robin_matches_single():
     """coarse='fdm' with coarse_cfg dist=True (pencil-transposed exact
     coarse solve, no gather) on the Robin mesh == single-device fdm
     coarse trajectories."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     prob = _robin_problem(nc=(8, 4, 4), coarse="fdm", operator="kron")
     u_s, rn_s = prob.solve(num_cycles=6)
@@ -412,7 +412,7 @@ def test_dist_fdm_dist_coarse_robin_matches_single():
 def test_grid_operator_matches_oracle(operator, kappa):
     from jax.sharding import PartitionSpec as P
 
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = BoxMesh((4, 4, 4), dirichlet_faces=DF, robin=ROBIN)
     A = assemble_stiffness(mesh, 3, kappa=kappa)
@@ -438,7 +438,7 @@ def test_grid_operator_matches_oracle(operator, kappa):
     ((2, 2), "lattice", "direct", 0.7),
 ])
 def test_grid_solve_matches_single(shards, operator, coarse, sigma):
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     prob = _robin_problem(nc=(4, 4, 4), coarse=coarse, operator=operator,
                           sigma=sigma)
@@ -450,17 +450,16 @@ def test_grid_solve_matches_single(shards, operator, coarse, sigma):
     assert np.allclose(u_d, np.asarray(u_s), atol=1e-9)
 
 
-def test_grid_kron_blocked_robin_matches_single():
-    """The grid-decomposed fused Mosaic pair (interpret mode on CPU):
-    per-shard stacked Kt factors carry the Robin ends on every sharded
-    axis incl. the edge-partial (Ktye/KtzTe) exchange operands."""
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+def test_grid_kron_f32_robin_matches_single():
+    """The grid-decomposed f32 kron backend: per-shard stacked K factors
+    carry the Robin ends on every sharded axis."""
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     prob = _robin_problem(nc=(4, 4, 4), coarse="cg",
-                          operator="kron_blocked", dtype=jnp.float32)
+                          operator="kron", dtype=jnp.float32)
     u_s, rn_s = prob.solve(num_cycles=5)
     grid = GridPMG(prob.mesh, shards=(2, 2, 2), degrees=(1, 3), kappa=2.0,
-                   coarse="cg", operator="kron_blocked", dtype=jnp.float32)
+                   coarse="cg", operator="kron", dtype=jnp.float32)
     u_d, rn_d = grid.solve(np.asarray(prob.b), num_cycles=5)
     assert np.allclose(rn_d, rn_s, rtol=1e-4), (rn_s, rn_d)
     assert np.allclose(u_d, np.asarray(u_s), atol=1e-5)
@@ -472,7 +471,7 @@ def test_grid_hmg_distributed_robin_matches_single(cfg):
     """Non-gathered grid h-MG with Robin: rediscretized end updates at
     every h-level in the multi-axis layout; bottom='fdm' keeps the whole
     hierarchy gather-free."""
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     prob = _robin_problem(nc=(4, 4, 4), coarse="hmg", operator="kron")
     u_s, rn_s = prob.solve(num_cycles=6)
@@ -488,7 +487,7 @@ def test_grid_hmg_general_dist_robin_curved():
     the rediscretized lattice h-levels bake the boundary mass into m3 on
     every level — trajectory-exact vs the single-device gathered
     build_hmg_general."""
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = PerturbedBoxMesh((4, 4, 4), dirichlet_faces=DF, robin=ROBIN)
     u = u_exact_mixed(DF)
@@ -508,7 +507,7 @@ def test_grid_hmg_general_dist_robin_curved():
 
 def test_grid_refined_robin_matches_single():
     """Grid-sharded mixed-precision refinement on the Robin system."""
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     prob = _robin_problem(nc=(4, 4, 4), coarse="fdm", operator="kron",
                           dtype=jnp.float32)
@@ -528,7 +527,7 @@ def test_schwarz_blocks_exact_with_robin():
     """The per-cell Schwarz FDM blocks fold the Robin end updates:
     M(r) == multiplicity-weighted exact per-cell block solves of the
     Robin-assembled matrix (kron form, per-axis kappa)."""
-    from pmg_dolfinx_tpu.solvers.schwarz import (
+    from pmg_dolfinx_jax.solvers.schwarz import (
         build_schwarz,
         schwarz_precond_apply,
     )
@@ -575,7 +574,7 @@ def test_solve_smoothers_robin(smoother):
 def test_dist_smoothers_robin_match_single(smoother):
     """Sharded Robin + line/Schwarz smoothers: the re-laid-out global
     blocks are trajectory-exact vs single-device."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     prob = _robin_problem(nc=(8, 4, 4), coarse="direct",
                           smoother=smoother)

@@ -23,17 +23,17 @@ import numpy as np
 import pytest
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, assemble_stiffness
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.models.poisson import (
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs, assemble_stiffness
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.models.poisson import (
     f_rhs,
     f_rhs_tensor,
     f_rhs_variable,
     kappa_aniso,
     kappa_linear,
 )
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
-from pmg_dolfinx_tpu.solvers.schwarz import (
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.solvers.schwarz import (
     build_schwarz,
     schwarz_precond_apply,
 )
@@ -42,7 +42,7 @@ DIAG = np.diag([1.0, 2.0, 64.0])
 
 
 def test_schwarz_dense_matches_batched():
-    """The dense per-axis form (default on TPU — six rectangular MXU
+    """The dense per-axis form (the default — six rectangular
     contractions, see schwarz._axis_dense) is mathematically identical
     to the batched per-cell-matmul reference form, incl. curved meshes,
     tensor kappa and the sigma shift."""
@@ -67,7 +67,7 @@ def test_schwarz_matches_exact_block_solves(sigma):
     """M(r) == symmetric multiplicity-weighted sum of EXACT per-cell
     block solves of the bc-applied assembled (shifted) matrix — the
     separable FDM form is exact for the Kronecker-form operator."""
-    from pmg_dolfinx_tpu.fem.assembly import lumped_mass_np
+    from pmg_dolfinx_jax.fem.assembly import lumped_mass_np
 
     mesh = BoxMesh((3, 4, 5))
     P = 2
@@ -173,7 +173,7 @@ def test_schwarz_general_family_curved_variable_kappa():
 
 
 def test_schwarz_sigma_shifted():
-    from pmg_dolfinx_tpu.fem.assembly import lumped_mass_np
+    from pmg_dolfinx_jax.fem.assembly import lumped_mass_np
 
     SIGMA = 7.0
     mesh = BoxMesh((6, 6, 8))
@@ -200,8 +200,8 @@ def test_schwarz_sharded_matches_single():
     overlap-add (ops['exchange'] inside the smoother), so ANY axis
     layout works — unlike the line smoother, which needs its line axis
     unsharded."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     K = np.diag([1.0, 2.0, 16.0])
     mesh = BoxMesh((8, 4, 8))
@@ -231,8 +231,8 @@ def test_schwarz_kron_sharded_matches_single():
     """Same invariance on the kron backend (lattice-shaped vectors) with
     the FDM coarse, and on the curved-hex general family (GridPMG
     lattice backend + hmg coarse) — the meshes Schwarz is for."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     K = np.diag([1.0, 2.0, 16.0])
     mesh = BoxMesh((8, 4, 8))
@@ -268,8 +268,8 @@ def test_hmg_schwarz_gathered_sharded_matches_single():
     global) hmg coarse under sharding: the replicated h-levels smooth
     with the global Schwarz data and no exchange (the ops dict of the
     inner hierarchy has none) — trajectory-exact vs single device."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     K = np.diag([1.0, 1.0, 16.0])
     mesh = BoxMesh((8, 4, 8))
@@ -298,8 +298,8 @@ def test_dist_hmg_schwarz_matches_single():
     global build's per-level cell blocks ride the duplicated-plane
     layouts of every h-level (slab AND multi-axis grid),
     trajectory-exact vs the single-device gathered hierarchy."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     K = np.diag([1.0, 1.0, 16.0])
     mesh = BoxMesh((8, 4, 8))
@@ -329,7 +329,7 @@ def test_dist_hmg_schwarz_general_family_matches_single():
     """Same for the GENERAL family (curved hexes + variable DG-0 kappa):
     build_hmg_grid_general threads the Schwarz blocks through the
     rediscretized multi-axis h-levels."""
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = PerturbedBoxMesh((8, 4, 8))
     b = jnp.asarray(np.asarray(
@@ -347,9 +347,8 @@ def test_dist_hmg_schwarz_general_family_matches_single():
     assert np.allclose(rn_g, rn_s, rtol=1e-10), (rn_s, rn_g)
 
 
-def test_schwarz_fuse_smoother_rejected():
+def test_schwarz_rejects_unknown_backend():
     mesh = BoxMesh((8, 8, 8))
-    with pytest.raises(ValueError, match="fuse_smoother"):
+    with pytest.raises(ValueError, match="unknown operator backend"):
         PMGHierarchy(mesh, degrees=(1, 3), kappa=2.0, dtype=jnp.float32,
-                     operator="kron_blocked", fuse_smoother=True,
-                     smoother="schwarz")
+                     operator="fused", smoother="schwarz")

@@ -11,12 +11,12 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import (
+from pmg_dolfinx_jax.fem.assembly import (
     assemble_rhs, assemble_stiffness, l2_error, lumped_mass_np)
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, geometric_spacing
-from pmg_dolfinx_tpu.models.semilinear import cubic, f_rhs_semilinear
-from pmg_dolfinx_tpu.models.poisson import u_exact
-from pmg_dolfinx_tpu.solvers.transient import (
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, geometric_spacing
+from pmg_dolfinx_jax.models.semilinear import cubic, f_rhs_semilinear
+from pmg_dolfinx_jax.models.poisson import u_exact
+from pmg_dolfinx_jax.solvers.transient import (
     semilinear_fdm_evolve, semilinear_newton_evolve, source_scales)
 
 KAPPA, SIGMA, DT, NSTEPS = 1.2, 0.7, 2e-3, 6
@@ -68,8 +68,8 @@ def test_imex_matches_dense_twin(scheme):
 def test_be_steady_state_matches_newton_solve():
     """The IMEX BE fixed point is EXACTLY the steady semilinear system:
     long evolution lands on the newton_solve answer."""
-    from pmg_dolfinx_tpu.solvers.newton import newton_solve
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.solvers.newton import newton_solve
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh, bc, m0, _ = _setup()
     P = 3
@@ -88,7 +88,7 @@ def test_be_steady_state_matches_newton_solve():
 def test_newton_evolve_matches_dense_implicit_twin():
     """Fully implicit BE via per-step newton_solve == a scipy per-step
     Newton twin (5 exact-Jacobian iterations, spsolve)."""
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh, bc, m0, u0 = _setup()
     P, sdt = 3, 1.0 / DT
@@ -134,7 +134,7 @@ def test_imex_orders(scheme, lo, hi):
 
 @pytest.mark.parametrize("shards", [4, (2, 2, 1)])
 def test_dist_matches_single(shards):
-    from pmg_dolfinx_tpu.parallel.transient_dist import (
+    from pmg_dolfinx_jax.parallel.transient_dist import (
         semilinear_dist_evolve)
 
     mesh = BoxMesh((4, 4, 4))
@@ -159,12 +159,11 @@ def test_dist_matches_single(shards):
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("scheme", ["be", "cnab"])
 def test_packed_matches_per_rhs(scheme, B):
-    """Lane-packed batched semilinear stepping == the per-RHS scanned
-    trajectories to f32 precision (reaction evaluated in the packed
-    layout; the m3 factor keeps padding lanes exactly zero)."""
+    """Batched semilinear stepping (vmap of the scanned IMEX stepper) ==
+    the per-RHS scanned trajectories to f32 precision."""
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.solvers.transient import semilinear_packed_evolve
+    from pmg_dolfinx_jax.solvers.transient import batch_evolve
 
     mesh = BoxMesh((6, 6, 6))
     P, dt, nsteps = 3, 2e-3, 5
@@ -176,8 +175,6 @@ def test_packed_matches_per_rhs(scheme, B):
                                 dtype=jnp.float32)
     ref = np.stack([np.asarray(ev1(U0[k], nsteps)).reshape(-1)
                     for k in range(B)])
-    UT = np.asarray(semilinear_packed_evolve(
-        mesh, P, NL, kappa=KAPPA, dt=dt, B=B, scheme=scheme,
-        sigma=SIGMA)(U0, nsteps))
+    UT = np.asarray(batch_evolve(ev1)(U0, nsteps))
     rel = np.linalg.norm(UT - ref) / np.linalg.norm(ref)
     assert rel < 2e-5, rel

@@ -15,10 +15,10 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, assemble_stiffness
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.models.poisson import PoissonProblem, f_rhs
-from pmg_dolfinx_tpu.ops.kron import KronLaplacian, axis_stiffness_mass
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs, assemble_stiffness
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.models.poisson import PoissonProblem, f_rhs
+from pmg_dolfinx_jax.ops.kron import KronLaplacian, axis_stiffness_mass
 
 SIGMA = 37.0
 
@@ -26,7 +26,7 @@ SIGMA = 37.0
 def _shifted_assembled(mesh, P, kappa, sigma):
     """A + sigma*diag(m3) with bc rows untouched (identity); general
     meshes via the GLL-lumped mass (`fem.assembly.lumped_mass_np`)."""
-    from pmg_dolfinx_tpu.fem.assembly import lumped_mass_np
+    from pmg_dolfinx_jax.fem.assembly import lumped_mass_np
 
     A = assemble_stiffness(mesh, P, kappa=kappa, bc=True).tocsr()
     return A + sigma * sp.diags(lumped_mass_np(mesh, P, bc_zero=True))
@@ -35,7 +35,7 @@ def _shifted_assembled(mesh, P, kappa, sigma):
 def test_lumped_mass_matches_tensor_product_on_box():
     """General lumped mass == the tensor product of 1D axis masses on an
     axis-aligned box (the kron family's closed form)."""
-    from pmg_dolfinx_tpu.fem.assembly import lumped_mass_np
+    from pmg_dolfinx_jax.fem.assembly import lumped_mass_np
 
     mesh = BoxMesh((3, 2, 4), extent=(1.0, 2.0, 0.5))
     for P in (1, 3):
@@ -58,7 +58,7 @@ def test_shifted_kron_vs_assembled():
 
 
 def test_shifted_fdm_exact_direct_solve():
-    from pmg_dolfinx_tpu.solvers.fdm import FastDiagonalizationSolver
+    from pmg_dolfinx_jax.solvers.fdm import FastDiagonalizationSolver
 
     mesh = BoxMesh((4, 3, 5), extent=(1.0, 2.0, 0.7))
     P, kappa = 3, 2.0
@@ -104,12 +104,12 @@ def test_shifted_general_backends_vs_assembled(operator):
     """Sigma on the general backends (r2 VERDICT missing #3): curved
     hexes + variable DG-0 kappa, operator apply == assembled oracle and
     the PMG trajectory solves the shifted system."""
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_rhs_variable, kappa_linear
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_rhs_variable, kappa_linear
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = PerturbedBoxMesh((4, 4, 2))
-    from pmg_dolfinx_tpu.fem.assembly import resolve_kappa
+    from pmg_dolfinx_jax.fem.assembly import resolve_kappa
 
     kc, _ = resolve_kappa(mesh, kappa_linear)
     hier = PMGHierarchy(mesh, degrees=(1, 3), kappa=kappa_linear,
@@ -131,18 +131,18 @@ def test_shifted_general_backends_vs_assembled(operator):
     assert np.allclose(np.asarray(u), u_ref, atol=1e-8)
 
 
-def test_shifted_lattice_blocked_matches_lattice():
-    """Sigma through the fused Mosaic lattice backend (emulated on CPU):
-    trajectories track the XLA lattice shifted backend."""
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_rhs_variable, kappa_linear
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+def test_shifted_lattice_f32_matches_f64():
+    """Sigma through the f32 lattice backend (the production dtype):
+    trajectories track the f64 lattice shifted backend."""
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_rhs_variable, kappa_linear
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = PerturbedBoxMesh((4, 4, 2))
     kwargs = dict(degrees=(1, 3), kappa=kappa_linear, coarse="cg",
-                  dtype=jnp.float32, sigma=SIGMA)
-    ref = PMGHierarchy(mesh, operator="lattice", **kwargs)
-    blk = PMGHierarchy(mesh, operator="lattice_blocked", **kwargs)
+                  operator="lattice", sigma=SIGMA)
+    ref = PMGHierarchy(mesh, dtype=jnp.float64, **kwargs)
+    blk = PMGHierarchy(mesh, dtype=jnp.float32, **kwargs)
     b = assemble_rhs(mesh, 3, f_rhs_variable(sigma=SIGMA))
     _, rn_ref = ref.solve(jnp.asarray(b), num_cycles=4)
     _, rn_blk = blk.solve(jnp.asarray(b), num_cycles=4)
@@ -168,11 +168,11 @@ def test_shifted_hmg_coarse():
 def test_shifted_general_dist_and_grid_match_single():
     """Shifted curved-hex variable-kappa problems under both
     decompositions (4-shard slab lattice; (2,2,2) grid lattice)."""
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.models.poisson import f_rhs_variable, kappa_linear
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.models.poisson import f_rhs_variable, kappa_linear
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = PerturbedBoxMesh((4, 4, 2))
     kwargs = dict(degrees=(1, 3), kappa=kappa_linear, coarse="cg",
@@ -195,8 +195,8 @@ def test_shifted_general_dist_and_grid_match_single():
 def test_shifted_dist_and_grid_match_single():
     """The shifted family under both decompositions: 4-shard slab and
     (2,2,2) grid trajectories match the single-device shifted solve."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     nc = (8, 4, 4)
     single = PoissonProblem(nc=nc, degrees=(1, 3), kappa=2.0,
@@ -225,7 +225,7 @@ def test_shifted_dist_direct_coarse_matches_single():
     """DistPMG sigma + coarse='direct': the coarse Cholesky must factor
     the SHIFTED operator A0 + sigma*M (advisor r2 medium finding — the
     unshifted factor silently degraded the 4-shard trajectory)."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
 
     nc = (8, 4, 4)
     single = PoissonProblem(nc=nc, degrees=(1, 3), kappa=2.0,
@@ -239,21 +239,22 @@ def test_shifted_dist_direct_coarse_matches_single():
     assert np.allclose(u_d, np.asarray(u_s), atol=1e-10)
 
 
-def test_shifted_kron_blocked_matches_kron():
-    """Sigma through the blocked Pallas kernels (interpret/emulation on
-    CPU): trajectories match the XLA kron shifted backend."""
+def test_shifted_kron_f32_matches_f64():
+    """Sigma through the f32 kron backend: trajectories match the f64
+    kron shifted backend, and the f32 apply matches the assembled
+    shifted oracle on an anisotropic box."""
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
+
     kwargs = dict(nc=(4, 4, 4), degrees=(1, 3), kappa=2.0, sigma=SIGMA,
-                  dtype=jnp.float32, coarse="cg")
-    ref = PoissonProblem(operator="kron", **kwargs)
-    blk = PoissonProblem(operator="kron_blocked", **kwargs)
+                  operator="kron", coarse="cg")
+    ref = PoissonProblem(dtype=jnp.float64, **kwargs)
+    blk = PoissonProblem(dtype=jnp.float32, **kwargs)
     _, rn_ref = ref.solve(num_cycles=4)
     _, rn_blk = blk.solve(num_cycles=4)
     assert np.allclose(rn_ref, rn_blk, rtol=1e-4), (rn_ref, rn_blk)
-    # Interpret-mode kernel parity against the f64 assembled oracle.
-    from pmg_dolfinx_tpu.ops.pallas_kron_blocked import PallasKronBlocked
 
     mesh = BoxMesh((3, 2, 4), extent=(1.0, 2.0, 0.5))
-    op = PallasKronBlocked(mesh, 3, kappa=2.0, sigma=SIGMA, interpret=True)
+    op = KronLaplacian(mesh, 3, kappa=2.0, sigma=SIGMA, dtype=jnp.float32)
     A = _shifted_assembled(mesh, 3, 2.0, SIGMA)
     x = np.random.default_rng(2).standard_normal(mesh.num_dofs(3))
     y = np.asarray(op(jnp.asarray(x, jnp.float32)))

@@ -11,13 +11,13 @@ import pytest
 import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import (
+from pmg_dolfinx_jax.fem.assembly import (
     assemble_stiffness,
     lumped_mass_np,
 )
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.models.poisson import kappa_linear
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.models.poisson import kappa_linear
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 
 def sigma_field(x):
@@ -84,8 +84,8 @@ def test_sigma_field_refined_matches_scipy():
 def test_sigma_field_sharded_matches_single():
     """Slab and grid decompositions: exact trajectory match vs the
     single-device hierarchy (the baked m3 rides the usual layouts)."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = BoxMesh((8, 4, 4))
     b = np.random.default_rng(3).standard_normal(mesh.num_dofs(3))
@@ -116,7 +116,7 @@ def test_sigma_field_dist_hmg_general_grid():
     """The distributed (dist=True) general-family h-MG coarse threads
     the field per rediscretized h-level — trajectory-exact vs the
     single-device hmg (same level sizes)."""
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = PerturbedBoxMesh((4, 8, 4))
     b = np.random.default_rng(4).standard_normal(mesh.num_dofs(3))
@@ -143,7 +143,7 @@ def test_sigma_field_rejections():
     with pytest.raises(ValueError, match="scalar sigma"):
         PMGHierarchy(mesh, degrees=(1, 2), kappa=2.0, operator="lattice",
                      smoother="schwarz", sigma=sigma_field)
-    from pmg_dolfinx_tpu.models.poisson import PoissonProblem
+    from pmg_dolfinx_jax.models.poisson import PoissonProblem
 
     with pytest.raises(ValueError, match="source term"):
         PoissonProblem(nc=(4, 4, 4), degrees=(1, 2), kappa=2.0,

@@ -15,15 +15,15 @@ import numpy as np
 import pytest
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import (
+from pmg_dolfinx_jax.fem.assembly import (
     assemble_rhs,
     assemble_stiffness,
     resolve_kappa,
     stiffness_diagonal_np,
 )
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, PerturbedBoxMesh
-from pmg_dolfinx_tpu.models.poisson import f_rhs
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, PerturbedBoxMesh
+from pmg_dolfinx_jax.models.poisson import f_rhs
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
 ANISO = np.diag([1.0, 1.0, 100.0])  # classic strong-anisotropy tensor
 
@@ -76,11 +76,11 @@ def test_operator_matches_assembled_oracle(operator):
     want[marker] = x[marker]
 
     if operator == "dofmap":
-        from pmg_dolfinx_tpu.ops.laplacian import MatFreeLaplacian
+        from pmg_dolfinx_jax.ops.laplacian import MatFreeLaplacian
 
         op = MatFreeLaplacian(mesh, P, kappa=kt, dtype=jnp.float64)
     else:
-        from pmg_dolfinx_tpu.ops.lattice import LatticeLaplacian
+        from pmg_dolfinx_jax.ops.lattice import LatticeLaplacian
 
         op = LatticeLaplacian(mesh, P, kappa=kt, dtype=jnp.float64)
         op = op.__call__ if not callable(op) else op
@@ -97,21 +97,15 @@ def test_diagonal_matches_assembled():
     assert np.allclose(d, A.diagonal(), atol=1e-12 * np.abs(d).max())
 
 
-def test_blocked_lattice_tensor_kappa_emulation():
-    """PallasLatticeBlocked with tensor kappa (XLA emulation fallback off
-    TPU routes through the same folded G): oracle parity in f32."""
-    import jax
-
-    if jax.default_backend() == "tpu":
-        pytest.skip("emulation-path test (CPU)")
-    from pmg_dolfinx_tpu.ops.pallas_lattice_blocked import (
-        PallasLatticeBlocked,
-    )
+def test_lattice_tensor_kappa_f32():
+    """The f32 lattice apply with a per-cell tensor kappa (folded into
+    G): oracle parity to f32 rounding."""
+    from pmg_dolfinx_jax.ops.lattice import LatticeLaplacian
 
     mesh = PerturbedBoxMesh((4, 3, 3))
     P = 3
     kt = _spd_tensor_field(mesh, seed=3)
-    op = PallasLatticeBlocked(mesh, P, kappa=kt)
+    op = LatticeLaplacian(mesh, P, kappa=kt, dtype=jnp.float32)
     A = assemble_stiffness(mesh, P, kappa=kt)
     x = np.random.default_rng(4).normal(size=mesh.num_dofs(P))
     marker = np.asarray(mesh.boundary_dof_marker(P))
@@ -143,8 +137,8 @@ def test_tensor_kappa_sharded_matches_single_device():
     """DistPMG (1D slab) and GridPMG (3D grid) with a per-cell SPD tensor
     field: residual trajectories match the single-device solve exactly
     (the rank-count-invariance contract extends to anisotropic kappa)."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = BoxMesh((8, 4, 4))
     degrees = (1, 3)
@@ -181,7 +175,7 @@ def test_rotated_tensor_stationary_smoother_iters():
     (measured; not pinned here for runtime)."""
     import warnings
 
-    from pmg_dolfinx_tpu.models.poisson import kappa_aniso
+    from pmg_dolfinx_jax.models.poisson import kappa_aniso
 
     mesh = BoxMesh((6, 6, 6))
     K = kappa_aniso()  # pi/6 off-grid rotation, 100:1
@@ -224,8 +218,8 @@ def test_kron_family_diagonal_tensor():
     (per-axis scalars) — grid-aligned anisotropic diffusion on the full
     kron path, oracle-verified, and solved EXACTLY by the FDM direct
     solver."""
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian
-    from pmg_dolfinx_tpu.solvers.fdm import FastDiagonalizationSolver
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
+    from pmg_dolfinx_jax.solvers.fdm import FastDiagonalizationSolver
 
     K = np.diag([1.0, 4.0, 64.0])
     mesh = BoxMesh((4, 5, 6))
@@ -256,9 +250,9 @@ def test_kron_family_diagonal_tensor():
 
 
 def test_kron_family_rejects_nonseparable():
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy as H
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy as H
 
-    from pmg_dolfinx_tpu.models.poisson import kappa_aniso
+    from pmg_dolfinx_jax.models.poisson import kappa_aniso
 
     mesh = BoxMesh((4, 4, 4))
     with pytest.raises(ValueError, match="Kronecker"):
@@ -289,8 +283,8 @@ def test_pmg_kron_fdm_diagonal_tensor_solve():
 
 
 def test_diag_tensor_kron_sharded_matches_single():
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     K = np.diag([1.0, 2.0, 16.0])
     mesh = BoxMesh((8, 4, 4))
@@ -312,8 +306,8 @@ def test_fdm_refine_shifted_system():
     refinement converged to the unshifted solution)."""
     import scipy.sparse as sp
 
-    from pmg_dolfinx_tpu.fem.assembly import lumped_mass_np
-    from pmg_dolfinx_tpu.solvers.fdm import FastDiagonalizationSolver
+    from pmg_dolfinx_jax.fem.assembly import lumped_mass_np
+    from pmg_dolfinx_jax.solvers.fdm import FastDiagonalizationSolver
 
     sigma = 50.0
     mesh = BoxMesh((4, 4, 4))

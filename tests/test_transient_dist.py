@@ -10,10 +10,10 @@ bit-exact; BE and Newmark run the identical formulas."""
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, geometric_spacing
-from pmg_dolfinx_tpu.parallel.transient_dist import (
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, geometric_spacing
+from pmg_dolfinx_jax.parallel.transient_dist import (
     heat_dist_evolve, wave_newmark_dist_evolve)
-from pmg_dolfinx_tpu.solvers.transient import (
+from pmg_dolfinx_jax.solvers.transient import (
     heat_fdm_evolve, wave_newmark_evolve)
 
 KAPPA, DT, NSTEPS = 1.3, 2e-3, 5
@@ -75,8 +75,8 @@ def test_convdiff_dist_matches_single(shards, scheme):
     matrices + duplicated-plane axis masses + per-axis exchanges must
     reproduce the single-device scan (graded sharded axis, mixed
     faces, driven source, and linear reaction sigma included)."""
-    from pmg_dolfinx_tpu.parallel.transient_dist import convdiff_dist_evolve
-    from pmg_dolfinx_tpu.solvers.transient import convdiff_fdm_evolve
+    from pmg_dolfinx_jax.parallel.transient_dist import convdiff_dist_evolve
+    from pmg_dolfinx_jax.solvers.transient import convdiff_fdm_evolve
 
     mesh, P = _mesh(), 3
     cvel = (1.1, -0.5, 0.3)
@@ -103,11 +103,11 @@ def test_fdm_apply_dist_matches_assembled():
     import scipy.sparse as sp
     from jax.sharding import NamedSharding
 
-    from pmg_dolfinx_tpu.fem.assembly import (assemble_stiffness,
+    from pmg_dolfinx_jax.fem.assembly import (assemble_stiffness,
                                               lumped_mass_np)
-    from pmg_dolfinx_tpu.parallel.fdm_dist import (dist_layout,
+    from pmg_dolfinx_jax.parallel.fdm_dist import (dist_layout,
                                                    make_fdm_apply_dist)
-    from pmg_dolfinx_tpu.parallel.multihost import fetch_global, put_global
+    from pmg_dolfinx_jax.parallel.multihost import fetch_global, put_global
 
     mesh = BoxMesh((4, 4, 2), dirichlet_faces=((True, True),
                                                (True, False),
@@ -140,9 +140,9 @@ def test_wave_leapfrog_dist_matches_single(shards):
     """Explicit sharded leapfrog (forward transform apply) vs the
     single-device kron-apply path — equal to eigendecomposition
     roundoff over the horizon."""
-    from pmg_dolfinx_tpu.parallel.transient_dist import (
+    from pmg_dolfinx_jax.parallel.transient_dist import (
         wave_leapfrog_dist_evolve)
-    from pmg_dolfinx_tpu.solvers.transient import wave_leapfrog_evolve
+    from pmg_dolfinx_jax.solvers.transient import wave_leapfrog_evolve
 
     mesh, P = _mesh(), 3
     u0, v0 = _u0(mesh, P), 0.2 * _u0(mesh, P)

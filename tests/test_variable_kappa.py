@@ -13,18 +13,18 @@ import numpy as np
 import pytest
 import scipy.sparse.linalg as spla
 
-from pmg_dolfinx_tpu.fem.assembly import (
+from pmg_dolfinx_jax.fem.assembly import (
     assemble_rhs,
     assemble_stiffness,
     resolve_kappa,
 )
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.models.poisson import (
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.models.poisson import (
     PoissonProblem,
     f_rhs_variable,
     kappa_linear,
 )
-from pmg_dolfinx_tpu.parallel.dist import DistPMG
+from pmg_dolfinx_jax.parallel.dist import DistPMG
 
 
 def test_resolve_kappa_specs():
@@ -128,7 +128,7 @@ def test_variable_kappa_rejected_where_unsupported():
     with pytest.raises(ValueError, match="constant-coefficient"):
         PoissonProblem(nc=mesh.nc, degrees=(1, 2), kappa=kappa_linear,
                        operator="lattice", coarse="fdm", f=f_rhs_variable())
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     with pytest.raises(ValueError, match="constant"):
         GridPMG(mesh, shards=(2, 2), kappa=kappa_linear)

@@ -16,10 +16,10 @@ import pytest
 import scipy.linalg
 import scipy.sparse as sp
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, assemble_stiffness
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.models.poisson import PoissonProblem, f_rhs
-from pmg_dolfinx_tpu.ops.lattice import axis_interpolation_matrix
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs, assemble_stiffness
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.models.poisson import PoissonProblem, f_rhs
+from pmg_dolfinx_jax.ops.lattice import axis_interpolation_matrix
 
 SMOOTHER_ITERS = 2
 CAL_ITERS = 20

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import l2_error, lumped_mass_np
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh, geometric_spacing
-from pmg_dolfinx_tpu.solvers.transient import (
+from pmg_dolfinx_jax.fem.assembly import l2_error, lumped_mass_np
+from pmg_dolfinx_jax.fem.mesh import BoxMesh, geometric_spacing
+from pmg_dolfinx_jax.solvers.transient import (
     wave_leapfrog_evolve, wave_newmark_evolve, wave_pcg_evolve,
     wave_stable_dt)
 
@@ -68,7 +68,7 @@ def test_newmark_energy_conservation():
     EXACTLY (trapezoidal rule on a linear system): relative drift at
     f64 over 100 steps is at rounding level. With gamma > 1/2 the
     scheme is dissipative: E decreases monotonically."""
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
 
     mesh = BoxMesh((5, 5, 5))
     P, dt, nsteps = 3, 0.02, 100
@@ -127,7 +127,7 @@ def test_leapfrog_rejects_zero_steps():
     the single-device and the sharded leapfrog alike."""
     import pytest
 
-    from pmg_dolfinx_tpu.parallel.transient_dist import (
+    from pmg_dolfinx_jax.parallel.transient_dist import (
         wave_leapfrog_dist_evolve)
 
     mesh, P = BoxMesh((4, 3, 3)), 2
@@ -159,7 +159,7 @@ def test_leapfrog_matches_newmark_trajectory():
 def test_pcg_path_matches_fdm(gamma):
     """The general-family FCG Newmark stepper reproduces the FDM path's
     discrete trajectory (u AND v) at tight per-step tolerance."""
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = BoxMesh((6, 6, 6))
     P, dt, nsteps = 3, 0.02, 5
@@ -184,8 +184,8 @@ def test_curved_wave_runs():
     """Curved-hex Newmark stepping (shifted lattice hierarchy) tracks
     the analytic standing wave within the Q1-geometry spatial accuracy
     of the coarse distorted mesh."""
-    from pmg_dolfinx_tpu.fem.mesh import PerturbedBoxMesh
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.fem.mesh import PerturbedBoxMesh
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     mesh = PerturbedBoxMesh((4, 4, 4))
     P, nsteps = 3, 8
@@ -206,7 +206,7 @@ def test_mixed_faces_energy():
     mix — the FDM shift and the kron apply share the same trimmed
     eigenstructure, and the conserved quantity doesn't care which faces
     are essential."""
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian
 
     faces = ((True, False), (True, True), (True, True))
     mesh = BoxMesh((5, 5, 5), dirichlet_faces=faces)
@@ -234,13 +234,13 @@ def test_mixed_faces_energy():
 @pytest.mark.parametrize("B", [1, 3])
 @pytest.mark.parametrize("scheme", ["newmark", "leapfrog"])
 def test_packed_wave_matches_per_rhs(scheme, B):
-    """Lane-packed batched wave stepping (solvers/transient.py
-    wave_packed_evolve) == the per-RHS scanned trajectories to f32
+    """Batched wave stepping (solvers/transient.py batch_evolve, vmap
+    of the scanned stepper) == the per-RHS scanned trajectories to f32
     precision for every column (homogeneous Dirichlet)."""
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.solvers.transient import (
-        wave_leapfrog_evolve, wave_packed_evolve)
+    from pmg_dolfinx_jax.solvers.transient import (
+        batch_evolve, wave_leapfrog_evolve)
 
     mesh = BoxMesh((6, 6, 6))
     P, dt, nsteps = 3, 5e-4, 5
@@ -256,15 +256,14 @@ def test_packed_wave_matches_per_rhs(scheme, B):
                   for a in ev1(U0[k], V0[k], nsteps)) for k in range(B)]
     uref = np.stack([r[0] for r in refs])
     vref = np.stack([r[1] for r in refs])
-    UT, VT = wave_packed_evolve(mesh, P, kappa=KAPPA, dt=dt, B=B,
-                                scheme=scheme)(U0, V0, nsteps)
+    UT, VT = batch_evolve(ev1)(U0, V0, nsteps)
     assert np.linalg.norm(np.asarray(UT) - uref) < \
         2e-5 * np.linalg.norm(uref)
     # Newmark's a1 = c0 (u1 - u*) amplifies f32 cancellation noise by
-    # c0 = 1/(beta dt^2) ~ 1e7, and the packed/per-RHS kernels round
-    # differently — the velocity agreement floor is ~1e-3 rel there
-    # (the displacement stays at f32 precision). Leapfrog has no such
-    # amplification.
+    # c0 = 1/(beta dt^2) ~ 1e7, and the batched/per-RHS programs may
+    # round differently — the velocity agreement floor is ~1e-3 rel
+    # there (the displacement stays at f32 precision). Leapfrog has no
+    # such amplification.
     vtol = 2e-3 if scheme == "newmark" else 2e-5
     assert np.linalg.norm(np.asarray(VT) - vref) < \
         vtol * np.linalg.norm(vref)

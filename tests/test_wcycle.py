@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.models.poisson import f_rhs
-from pmg_dolfinx_tpu.solvers.chebyshev import chebyshev4_solve
-from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy, v_cycle
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.models.poisson import f_rhs
+from pmg_dolfinx_jax.solvers.chebyshev import chebyshev4_solve
+from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy, v_cycle
 
 KAPPA = 2.0
 
@@ -115,8 +115,8 @@ def test_wcycle_sharded_matches_single_device():
     """DistPMG and GridPMG with coarse_cfg gamma=2: trajectory-exact vs
     the single-device W-cycle (shard-layout invariance extends to the
     recursive cycle shape)."""
-    from pmg_dolfinx_tpu.parallel.dist import DistPMG
-    from pmg_dolfinx_tpu.parallel.grid2d import GridPMG
+    from pmg_dolfinx_jax.parallel.dist import DistPMG
+    from pmg_dolfinx_jax.parallel.grid2d import GridPMG
 
     mesh = BoxMesh((8, 8, 4))
     degrees = (1, 2, 4)

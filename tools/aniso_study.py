@@ -1,10 +1,9 @@
 """Anisotropy-remedy study: one table, every remedy, measured.
 
-Rerunnable twin for ARTIFACTS/anisotropy_r3.md. Compares the framework's
-three anisotropy remedies — more smoothing (smoother_iters), h-MG
-SEMI-COARSENING (hmg.semicoarsen_sizes), and LINE RELAXATION
-(solvers/line.py) — against point-Jacobi baselines on three measured
-problem classes:
+Compares the framework's three anisotropy remedies — more smoothing
+(smoother_iters), h-MG SEMI-COARSENING (hmg.semicoarsen_sizes), and LINE
+RELAXATION (solvers/line.py) — against point-Jacobi baselines on three
+measured problem classes:
 
   A. grid-aligned tensor anisotropy: kappa = diag(1,1,64), (8,8,16)
      cells, p=(1,3), h-MG coarse — FCG iterations to rtol 1e-10 (cap
@@ -37,20 +36,21 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/pmg_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+    from pmg_dolfinx_jax.utils.cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_secs=0.3)
     import jax.numpy as jnp
     import scipy.sparse.linalg as spla
 
-    from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, assemble_stiffness
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.models.poisson import (
+    from pmg_dolfinx_jax.fem.assembly import assemble_rhs, assemble_stiffness
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.models.poisson import (
         f_rhs,
         f_rhs_tensor,
         kappa_aniso,
     )
-    from pmg_dolfinx_tpu.solvers.hmg import semicoarsen_axes, semicoarsen_sizes
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy
+    from pmg_dolfinx_jax.solvers.hmg import semicoarsen_axes, semicoarsen_sizes
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy
 
     def fcg(mesh, degrees, kappa, b, coarse, si=2, smoother="cheb",
             cfg=None, operator="lattice"):

@@ -1,13 +1,12 @@
-"""Batched multi-RHS throughput on the real TPU: does the vmapped RHS
-axis buy MXU utilization where one RHS does not saturate the chip?
+"""Batched multi-RHS throughput on the accelerator: does the vmapped RHS
+axis buy utilization where one RHS does not saturate the device?
 
 Three measurements (f32 'highest', bench.py slope methodology):
 
 - kron p=6 APPLY at ~227k dofs, batch 1 vs 8: per-RHS GDOF/s. Small
-  problems are launch/HBM-latency-bound on one chip; the batch axis
+  problems are launch/latency-bound on one device; the batch axis
   amortizes that.
-- FDM direct SOLVE at 2.05M dofs p=6, batch 1 vs 8: per-RHS ms (the
-  0.135 ms single-RHS number's batched form).
+- FDM direct SOLVE at 2.05M dofs p=6, batch 1 vs 8: per-RHS ms.
 - V-cycle p=(1,3,6) at ~227k dofs (fdm coarse), batch 1 vs 8: per-RHS
   ms/cycle — the preconditioner under `solve_pcg_many`.
 
@@ -26,7 +25,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from pmg_dolfinx_tpu.utils.measure import measure as _measure  # noqa: E402
+from pmg_dolfinx_jax.utils.measure import measure as _measure  # noqa: E402
 
 
 def _per_rhs(run_factory, batches, lo, hi):
@@ -38,8 +37,8 @@ def _per_rhs(run_factory, batches, lo, hi):
 
 
 def bench_apply_small(nc=(10, 10, 10), lo=50, hi=250):
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.ops.kron import KronLaplacian, kron_laplacian_apply
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.ops.kron import KronLaplacian, kron_laplacian_apply
 
     P = 6
     mesh = BoxMesh(nc)
@@ -70,8 +69,8 @@ def bench_apply_small(nc=(10, 10, 10), lo=50, hi=250):
 
 
 def bench_fdm_2m(nc=(21, 21, 21), lo=20, hi=100):
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.solvers.fdm import (
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.solvers.fdm import (
         FastDiagonalizationSolver,
         fdm_solve,
     )
@@ -103,8 +102,8 @@ def bench_fdm_2m(nc=(21, 21, 21), lo=20, hi=100):
 
 
 def bench_vcycle_small(nc=(10, 10, 10), lo=10, hi=50):
-    from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-    from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy, v_cycle
+    from pmg_dolfinx_jax.fem.mesh import BoxMesh
+    from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy, v_cycle
 
     mesh = BoxMesh(nc)
     hier = PMGHierarchy(mesh, degrees=(1, 3, 6), kappa=2.0,

@@ -2,7 +2,7 @@
 under rotated tensor anisotropy fixed by a Galerkin (I^T A I) coarse
 operator chain, or by an exactly-integrated Q1 rediscretization?
 
-MEASURED ANSWER (ARTIFACTS/INDEX.md, CLAUDE.md): NO — all three coarse
+MEASURED ANSWER (CPU, float64): NO — all three coarse
 variants (GLL rediscretized / whole-chain Galerkin / exact Q1) diverge
 identically on the three-level (1,3,6) rotated-100:1 cycle at
 smoother_iters=2, and all converge at smoother_iters>=3 (cubic mesh;
@@ -25,10 +25,10 @@ import scipy.sparse as sp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pmg_dolfinx_tpu.fem.assembly import assemble_rhs, assemble_stiffness
-from pmg_dolfinx_tpu.fem.mesh import BoxMesh
-from pmg_dolfinx_tpu.models.poisson import f_rhs
-from pmg_dolfinx_tpu.ops.lattice import axis_interpolation_matrix
+from pmg_dolfinx_jax.fem.assembly import assemble_rhs, assemble_stiffness
+from pmg_dolfinx_jax.fem.mesh import BoxMesh
+from pmg_dolfinx_jax.models.poisson import f_rhs
+from pmg_dolfinx_jax.ops.lattice import axis_interpolation_matrix
 
 from tests.test_vcycle_twin import (_np_cheb4, _np_lanczos_lmax,
                                     _np_recorded_cg)

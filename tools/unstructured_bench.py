@@ -1,6 +1,5 @@
-"""DSS unstructured-operator throughput on the real TPU (VERDICT r4
-item 1 'done' gate: >=1 GDOF/s at p=6 on an unstructured mesh at
-~1-2M dofs, >=25x over the 0.04 GDOF/s dofmap path).
+"""DSS unstructured-operator throughput on the accelerator, beside the
+dofmap element-gather/scatter-add path (ROADMAP S4).
 
 Measures on the L-shaped demo mesh (provably non-box topology):
 
@@ -41,15 +40,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pmg_dolfinx_tpu.fem.geometry import (
+    from pmg_dolfinx_jax.fem.geometry import (
         geometry_factors, quadrature_weights_3d, tabulate_geometry_dphi)
-    from pmg_dolfinx_tpu.fem.gll import derivative_matrix
-    from pmg_dolfinx_tpu.fem.unstructured import l_shaped_hex_mesh
-    from pmg_dolfinx_tpu.ops.laplacian import laplacian_apply
-    from pmg_dolfinx_tpu.ops.unstructured import (
+    from pmg_dolfinx_jax.fem.gll import derivative_matrix
+    from pmg_dolfinx_jax.fem.unstructured import l_shaped_hex_mesh
+    from pmg_dolfinx_jax.ops.laplacian import laplacian_apply
+    from pmg_dolfinx_jax.ops.unstructured import (
         apply_cells, dss_device_tables, dss_gather, dss_laplacian_apply,
         dss_meta, dss_scatter)
-    from pmg_dolfinx_tpu.utils.measure import measure as _measure
+    from pmg_dolfinx_jax.utils.measure import measure as _measure
 
     P = args.p
     n = P + 1
@@ -79,8 +78,8 @@ def main():
 
     @partial(jax.jit, static_argnums=(3,))
     def c_apply(reps, x, lv_, prec):
-        # traced reps + pure scaled chain: the scalar-perturbation form
-        # blew the TPU compile past 45 min (see bench.py note)
+        # traced reps + pure scaled chain (a static trip count invites
+        # XLA to unroll the 27-block concat graph)
         def body(i, v):
             return 1e-4 * dss_laplacian_apply(v, lv_, meta, precision=prec)
         return jax.lax.fori_loop(0, reps, body, x)[0]
@@ -131,7 +130,7 @@ def main():
             print(f"{name}: FAILED {e}", flush=True)
 
     if not args.skip_vcycle:
-        from pmg_dolfinx_tpu.solvers.pmg import PMGHierarchy, v_cycle
+        from pmg_dolfinx_jax.solvers.pmg import PMGHierarchy, v_cycle
 
         t0 = time.time()
         hier = PMGHierarchy(mesh, degrees=(1, 3, P), kappa=2.0,
